@@ -12,13 +12,19 @@ if any fails:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the kernel build time and the compiler's register/shared
    memory report;
-3. kernel vs plain: the paged flash-attention kernel against its plain
-   PyTorch version on the card, over decode and chunk cases (llama3_8b
-   heads 32/8 at D=128, an MHA case at D=64, a windowed case with
-   nonzero ``kv_start``, pad rows that must come back exactly zero; bf16
-   and fp32), each with its absolute and per-row relative error against
-   their tolerances, its time, the plain version's, SDPA's (timed only)
-   and the card's bound;
+3. kernels (kernel vs plain): every kernel against its plain PyTorch
+   version on the card, each case with its absolute and per-row relative
+   error against their tolerances, its time, the plain version's, SDPA's
+   (timed only, never called by the port) and the card's bound:
+   - the paged forward (serving): decode and chunk cases (llama3_8b
+     heads 32/8 at D=128, an MHA case at D=64, a windowed case with
+     nonzero ``kv_start``, pad rows that must come back exactly zero;
+     bf16 and fp32);
+   - the training kernels — the uniform-offset forward (out and lse),
+     dQ, and dK/dV: gpt_small's shape (B=8, S=2048, 12 heads of 64; the
+     main path's), llama3_8b's attention (32/8 heads, D=128, S=4096,
+     the GQA group sum), bidirectional, a causal and a bidirectional
+     window of 256, a ragged S=1000; bf16 and fp32;
 4. serving: ``ServingEngine`` over llama3_8b at full width (32 layers,
    bf16, random weights from a seeded generator on the card) serves two
    waves of requests; every request must complete, the kernel must have
@@ -26,14 +32,28 @@ if any fails:
    the prefix cache, and each first token's logits must match a dense
    cache-free forward;
 5. oracle: llama3_8b width, 2 layers, fp32 — greedy streams through the
-   engine must equal one-at-a-time plain decode (tie-aware).
+   engine must equal one-at-a-time plain decode (tie-aware);
+6. training: gpt_small at full width and depth (B=8, S=2048, bf16
+   compute over fp32 masters, AdamW 1e-3 at optax's defaults) through
+   ``init()`` (world 1 over NCCL), ``replicate_state`` and
+   ``data_parallel_train_step``, 10 steps on one fixed batch: every loss
+   finite and the last below the first, exactly 12 launches of each
+   training kernel per step; tokens/s, MFU, peak memory, then the
+   device busy share and time by kernel class over 2 profiled steps;
+7. training_oracle: gpt_small width, 2 layers, fp32 — the gradient of
+   every parameter through the kernels ("flash") against the plain dense
+   path ("dot") on the same weights and batch.
 
-The card's ``nvidia-smi`` line comes next, then the ``kernels`` JSON on
-the line before the last (``launches`` from the serving run, the other
-numbers from the kernel phase; null where ``--phases`` left that phase
-out); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout, it exits 1 and prints no result.  ``--phases`` runs a subset
-(e.g. ``--phases kernels``); the default runs all.
+Each main path (serving, training) is driven with the kernels' launch
+counts set to 0 just before it and read just after.  The card's
+``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
+before the last (one entry per kernel source and C entry: ``launches``
+from the main paths' runs, the other numbers from the kernel phase at
+the main path's shape; null where ``--phases`` left that phase out);
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or outside a checkout, it exits 1 and prints no result.
+``--phases`` runs a subset (e.g. ``--phases kernels,training``); the
+default runs all.
 """
 
 from __future__ import annotations
@@ -238,6 +258,165 @@ def phase_kernels():
     return recs
 
 
+# -- phase 3b: the training kernels (B1 uniform offset, B2, B3) --------------
+
+# (name, B, S, H, H_kv, D, causal, window, dtype); the first is the main
+# path's shape (gpt_small at B=8, S=2048)
+TRAIN_CASES = [
+    ("gpt_small_causal", 8, 2048, 12, 12, 64, True, None, "bfloat16"),
+    ("gpt_small_causal", 8, 2048, 12, 12, 64, True, None, "float32"),
+    ("llama3_8b_gqa_causal", 1, 4096, 32, 8, 128, True, None, "bfloat16"),
+    ("llama3_8b_gqa_causal", 1, 4096, 32, 8, 128, True, None, "float32"),
+    ("bidirectional", 4, 2048, 12, 12, 64, False, None, "bfloat16"),
+    ("causal_window256", 4, 2048, 12, 12, 64, True, 256, "bfloat16"),
+    ("bidirectional_window256", 4, 2048, 12, 12, 64, False, 256,
+     "bfloat16"),
+    ("ragged_s1000_gqa", 2, 1000, 12, 4, 64, True, None, "bfloat16"),
+    ("ragged_s1000_gqa", 2, 1000, 12, 4, 64, True, None, "float32"),
+    ("ragged_s1000_bidirectional_window", 2, 1000, 12, 4, 64, False, 100,
+     "float32"),
+]
+# kernel vs plain on the training kernels' outputs (O, lse, dQ, dK, dV):
+# absolute error within TOL x max(1, largest |plain output|) (gradients
+# are not bounded by 1 as attention outputs are), and per-row error
+# relative to the row's largest |output|, where rows whose largest value
+# is below 1e-2 of the tensor's are held against 1e-2 of the tensor's
+# largest instead (a causal dQ's first row is 0 up to rounding).  The
+# fp32 row tolerance is 3e-4: the first rows of a causal dQ sum few
+# terms of dS = P∘(dO·Vᵀ − δ), whose difference cancels, so fp32
+# rounding that is 1e-6 of the tensor shows as up to ~1e-4 of such a
+# row (7.4e-5 observed, llama3_8b GQA dQ on an H100); a dropped or
+# misplaced tile is off by O(1).
+TRAIN_ROW_TOL = {"bfloat16": 1e-2, "float32": 3e-4}
+
+
+def _errors(out, ref):
+    diff = (out.float() - ref.float()).abs()
+    refa = ref.float().abs()
+    top = float(refa.max())
+    rows = refa.amax(dim=-1).clamp_min(max(1e-2 * top, 1e-30))
+    return (float(diff.max()), float((diff.amax(dim=-1) / rows).max()),
+            max(1.0, top))
+
+
+def _train_bounds(b, s, h, h_kv, d, causal, window, el, dtype):
+    """Least time on the card for each kernel: max(bytes / HBM rate,
+    FLOPs / peak).  Triples = visible (head, query, key) entries of this
+    run's mask.  FLOPs per triple: 4·D forward (QKᵀ, PV), 6·D dq (QKᵀ,
+    dO·Vᵀ, dS·K), 8·D dkv (QKᵀ, Pᵀ·dO, dO·Vᵀ, dSᵀ·Q).  Bytes: each input
+    read once and each output written once (q-side (B,S,H,D) tensors,
+    kv-side (B,S,H_kv,D) ones, fp32 (B,H,S) statistics)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    mask = fa._self_mask(s, causal, window, "cuda")
+    triples = int(mask.sum()) * b * h
+    qs, kvs, st = b * s * h * d * el, b * s * h_kv * d * el, b * h * s * 4
+    peak = PEAK_FLOPS[dtype]
+    out = {}
+    for name, nbytes, flops in (
+            ("fwd", 2 * qs + 2 * kvs + st, 4 * d * triples),
+            ("dq", 3 * qs + 2 * kvs + 2 * st, 6 * d * triples),
+            ("dkv", 2 * qs + 4 * kvs + 2 * st, 8 * d * triples)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        out[name] = (max(t_b, t_o) * 1e3,
+                     "bytes" if t_b >= t_o else "operations")
+    del mask
+    return out, triples
+
+
+def run_train_case(name, b, s, h, h_kv, d, causal, window, dtype_name):
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device="cuda").to(dtype)
+    q, k, v, do = mk(b, s, h, d), mk(b, s, h_kv, d), mk(b, s, h_kv, d), \
+        mk(b, s, h, d)
+    kw = dict(causal=causal, window=window)
+    fwd = lambda: fa.flash_forward(q, k, v, causal, window)  # noqa: E731
+    out, lse = fwd()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_k = lambda: fa.flash_bwd_dq_cuda(  # noqa: E731
+        q, k, v, do, lse, delta, **kw)
+    dkv_k = lambda: fa.flash_bwd_dkv_cuda(  # noqa: E731
+        q, k, v, do, lse, delta, **kw)
+    dq = dq_k()
+    dk, dv = dkv_k()
+    torch.cuda.synchronize()
+    plain_f = lambda: fa.flash_attention_reference(  # noqa: E731
+        q, k, v, causal, window)
+    plain_dq = lambda: fa.flash_bwd_dq_reference(  # noqa: E731
+        q, k, v, do, lse, delta, causal, window)
+    plain_dkv = lambda: fa.flash_bwd_dkv_reference(  # noqa: E731
+        q, k, v, do, lse, delta, causal, window)
+    errs = {}
+    r_out, r_lse = plain_f()
+    errs["o"] = _errors(out, r_out)
+    errs["lse"] = _errors(lse[..., None], r_lse[..., None])
+    del r_out, r_lse
+    errs["dq"] = _errors(dq, plain_dq())
+    r_dk, r_dv = plain_dkv()
+    errs["dk"], errs["dv"] = _errors(dk, r_dk), _errors(dv, r_dv)
+    del r_dk, r_dv
+    ok = all(math.isfinite(a) and a <= TOL[dtype_name] * top
+             and math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
+             for a, r, top in errs.values())
+    bounds, triples = _train_bounds(b, s, h, h_kv, d, causal, window,
+                                    q.element_size(), dtype_name)
+    rec = dict(case=name, shape=[b, s, h, h_kv, d], causal=causal,
+               window=window, dtype=dtype_name, ok=ok, triples=triples,
+               tol=TOL[dtype_name], row_tol=TRAIN_ROW_TOL[dtype_name],
+               errors={key: dict(abs=a, row=r, abs_bound=TOL[dtype_name]
+                                 * top) for key, (a, r, top) in errs.items()})
+    for key, kern, plain in (("fwd", fwd, plain_f), ("dq", dq_k, plain_dq),
+                             ("dkv", dkv_k, plain_dkv)):
+        rec[key] = dict(kernel_ms=cuda_ms(kern, reps=5),
+                        plain_ms=cuda_ms(plain, reps=2, warmup=1),
+                        bound_ms=bounds[key][0], bound_by=bounds[key][1])
+        torch.cuda.empty_cache()
+    # SDPA on the same function, timed only (never used by the port): its
+    # forward beside B1, its whole backward (dQ, dK, dV) beside B2 + B3
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    if window is None:
+        sd_kw = dict(is_causal=causal)
+    else:
+        sd_kw = dict(attn_mask=fa._self_mask(s, causal, window, "cuda"))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, enable_gqa=True, **sd_kw)
+    try:
+        rec["fwd"]["library_ms"] = cuda_ms(sdpa, reps=5)
+        o_sd = sdpa()
+        g_sd = do.transpose(1, 2).contiguous()
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            o_sd, (qt, kt, vt), g_sd, retain_graph=True)
+        rec["sdpa_bwd_ms"] = cuda_ms(bwd, reps=5)
+        del o_sd
+    except Exception as e:  # an SDPA without enable_gqa: no yardstick
+        log(f"  {name}: library call unavailable ({e!r})")
+        rec["fwd"]["library_ms"] = rec["sdpa_bwd_ms"] = None
+    rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = rec["sdpa_bwd_ms"]
+    log("  " + json.dumps(rec))
+    return rec
+
+
+def phase_train_kernels():
+    import torch
+
+    recs = []
+    for case in TRAIN_CASES:
+        recs.append(run_train_case(*case))
+        torch.cuda.empty_cache()
+    bad = [f"{r['case']}/{r['dtype']}" for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"training kernels disagree with their plain versions: {bad}")
+    return recs
+
+
 # -- phase 4: serving at full width ------------------------------------------
 
 
@@ -335,12 +514,45 @@ def phase_serving():
 def _kernel_class(name):
     n = name.lower()
     if "flash_fwd" in n:
-        return "attention_kernel"
+        return "attention_fwd_kernel"
+    if "flash_bwd" in n:
+        return "attention_bwd_kernels"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "sm90", "nvjet")):
         return "gemm"
     if "index" in n or "gather" in n or "scatter" in n:
         return "cache_copy"
     return "other"
+
+
+def _device_breakdown(prof, wall, steps):
+    """Device time by kernel class and by kernel name, the device busy
+    share (union of kernel intervals over the wall) and kernels per step
+    from a torch.profiler capture."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_class, by_name, spans = {}, {}, []
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not kernels:
+        log("  profile: the profiler recorded no device kernels "
+            "(device time not measured)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(
+        steps=steps, wall_s=wall,
+        device_ms_by_class={k: round(v, 3) for k, v in by_class.items()},
+        device_busy_share=(busy_us / 1e6 / wall) if kernels else None,
+        top_kernels_ms={k: round(v, 3) for k, v in top},
+        kernels_per_step=len(kernels) / max(1, steps))
 
 
 def profile_wave(eng, prompts):
@@ -365,41 +577,19 @@ def profile_wave(eng, prompts):
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_class, by_name = {}, {}
-    spans = []
-    for e in kernels:
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        cls = _kernel_class(e.name)
-        by_class[cls] = by_class.get(cls, 0.0) + ms
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
-        spans.append((e.time_range.start, e.time_range.end))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    rec = _device_breakdown(prof, wall, eng.steps - steps0)
     host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
                    for a in prof.key_averages()
                    if a.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])[:10]
-    busy_us, end = 0.0, -1.0
-    for a, b in sorted(spans):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
     kinds = {}
     for site, _t0, dur, args, _tid in trace.snapshot(since):
         if site == "serve.step" and args:
             kinds.setdefault(args["kind"], []).append(dur * 1e3)
-    rec = dict(
-        steps=eng.steps - steps0, wall_s=wall,
-        device_ms_by_class={k: round(v, 3) for k, v in by_class.items()},
-        device_busy_share=(busy_us / 1e6 / wall) if kernels else None,
+    rec.update(
         step_ms_mean={k: sum(v) / len(v) for k, v in kinds.items()},
         step_count={k: len(v) for k, v in kinds.items()},
-        top_kernels_ms={k: round(v, 3) for k, v in top},
-        kernels_per_step=len(kernels) / max(1, eng.steps - steps0),
         top_host_self_ms_calls={k: [round(ms, 3), n] for k, ms, n in host})
-    if not kernels:
-        log("  profile: the profiler recorded no device kernels "
-            "(device time not measured)")
     log("  profile: " + json.dumps(rec))
     return rec
 
@@ -459,9 +649,209 @@ def phase_oracle():
     return compared
 
 
+# -- phase 6: data-parallel training of gpt_small at full width --------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, PROFILE_STEPS = 8, 2048, 10, 2
+
+
+def _reset_train_counts():
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        fn.launches = 0
+
+
+def _train_counts():
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches)
+
+
+def phase_training():
+    """gpt_small (12 layers, 12 heads of 64, vocab 32000) at full width
+    and depth, B=8 x S=2048, bf16 compute over fp32 master weights,
+    AdamW(1e-3) at optax's defaults, through the public training path:
+    init() (world 1 over NCCL) -> replicate_state -> data_parallel_
+    train_step, TRAIN_STEPS steps on one fixed batch."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import Transformer, gpt_small, init_params
+
+    hvd.init()
+    assert hvd.size() == 1 and hvd.device().type == "cuda"
+    cfg = gpt_small(dtype=torch.bfloat16, attention_impl="flash")
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda", param_dtype=torch.float32)
+    model = Transformer(cfg, params=params)
+    del params
+    n_params = sum(p.numel() for p in model.parameters())
+    # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    state = training.replicate_state(training.create_train_state(model, opt))
+    step = training.data_parallel_train_step(model, opt)
+    rs = np.random.RandomState(SEED)
+    toks = torch.as_tensor(
+        rs.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)),
+        dtype=torch.long, device="cuda")
+    inputs, labels = toks[:, :-1], toks[:, 1:]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    losses, per_step, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = _train_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, inputs, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        per_step.append(tuple(a - b for a, b in zip(_train_counts(),
+                                                    before)))
+    launches = _train_counts()
+    losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), f"loss not finite: {losses}"
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    want = (cfg.num_layers,) * 3
+    assert all(c == want for c in per_step), (
+        f"kernel launches per step {per_step} != {want} (fwd, dq, dkv)")
+    assert state.step == TRAIN_STEPS
+    tokens = TRAIN_B * TRAIN_S
+    steady = times[1:]  # the first step pays one-time set-up
+    step_s = sum(steady) / len(steady)
+    # model FLOPs: 6·N per token (attention's S² term not counted); the
+    # attention-inclusive figure adds 6·L·S·d per token (causal half of
+    # 12·L·S·d)
+    mfu = 6 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"]
+    attn = 6 * cfg.num_layers * TRAIN_S * cfg.d_model * tokens
+    rec = dict(params=n_params, batch=[TRAIN_B, TRAIN_S],
+               steps=TRAIN_STEPS, losses=losses, step_s=times,
+               step_s_mean_steady=step_s, tokens_per_s=tokens / step_s,
+               mfu_6n=mfu, mfu_6n_plus_attention=mfu + attn / step_s
+               / PEAK_FLOPS["bfloat16"],
+               launches=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"), launches)),
+               launches_per_step=list(per_step[0]), peak_mem_gb=peak_gb)
+    log("  training: " + json.dumps(rec))
+    rec["profile"] = profile_train(step, state, inputs, labels)
+    hvd.shutdown()
+    del state, step, model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_train(step, state, inputs, labels):
+    """Device busy share and device time by kernel class over
+    PROFILE_STEPS more steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, loss = step(state, inputs, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec = _device_breakdown(prof, wall, PROFILE_STEPS)
+    log("  training profile: " + json.dumps(rec))
+    return rec
+
+
+def phase_training_oracle():
+    """gpt_small width, 2 layers, fp32: the gradient of every parameter
+    through the kernels ("flash") against the plain dense path ("dot"),
+    on the same weights and batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import Transformer, gpt_small, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt_small(num_layers=2, dtype=torch.float32,
+                    attention_impl="flash")
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED + 2),
+                         device="cuda")
+    rs = np.random.RandomState(SEED + 2)
+    toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, size=(2, 513)),
+                           dtype=torch.long, device="cuda")
+    grads = {}
+    for impl in ("flash", "dot"):
+        model = Transformer(dataclasses.replace(cfg, attention_impl=impl),
+                            params={k: v.clone() for k, v in params.items()})
+        loss = training.softmax_cross_entropy(model(toks[:, :-1]),
+                                              toks[:, 1:])
+        loss.backward()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+    # fp32 on both sides; the kernels sum in another order than the dense
+    # einsums, so each gradient agrees to rounding, far inside 1e-4 of
+    # its largest entry
+    tol = 1e-4
+    worst = max(float((grads["flash"][n] - g).abs().max()
+                      / g.abs().max().clamp_min(1e-30))
+                for n, g in grads["dot"].items())
+    log(f"  training oracle: {len(grads['dot'])} parameter gradients, flash "
+        f"vs dot: max |diff|/max|grad| = {worst:.3g} (tol {tol})")
+    assert worst <= tol, "gradients through the kernels disagree"
+    torch.cuda.empty_cache()
+    return worst
+
+
+PHASES = ("kernels", "serving", "oracle", "training", "training_oracle")
+
+
+def kernel_entries(kern, train_kern, serving, train):
+    """The ``kernels`` JSON line: one entry per kernel source and C
+    entry.  ``launches`` come from the main paths' runs (flash_fwd: the
+    serving run's plus the training run's), the other numbers from the
+    kernel phase at the main path's shape (flash_fwd: the training
+    forward, gpt_small bf16); a phase left out by ``--phases`` leaves its
+    numbers null."""
+    main = train_kern[0] if train_kern else None
+    fwd_launches = None
+    if serving or train:
+        fwd_launches = ((serving["launches"] if serving else 0)
+                        + (train["launches"]["flash_fwd"] if train else 0))
+    entries = []
+    for name, key, src, line in (
+            ("flash_fwd", "fwd", "flash_fwd.cu", 104),
+            ("flash_bwd_dq", "dq", "flash_bwd.cu", 301),
+            ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 342)):
+        e = dict(name=name, route="cuda",
+                 source=f"horovod_tpu_torch/csrc/{src}",
+                 replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
+                 launches=(fwd_launches if key == "fwd" else
+                           train["launches"][name] if train else None),
+                 max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+                 bound_by=None, library_ms=None)
+        if main:
+            outs = {"fwd": ("o", "lse"), "dq": ("dq",),
+                    "dkv": ("dk", "dv")}[key]
+            errs = [r["errors"][o]["abs"] for r in train_kern for o in outs]
+            if key == "fwd":
+                errs += [r["max_abs_err"] for r in kern]
+            e.update(max_abs_err=max(errs), ms=main[key]["kernel_ms"],
+                     plain_ms=main[key]["plain_ms"],
+                     bound_ms=main[key]["bound_ms"],
+                     bound_by=main[key]["bound_by"],
+                     library_ms=main[key]["library_ms"])
+        entries.append(e)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serving,oracle")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -496,34 +886,26 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    kern = serving = None
+    kern = train_kern = serving = train = None
     if "kernels" in phases:
         log("phase kernels:")
         kern = phase_kernels()
+        train_kern = phase_train_kernels()
     if "serving" in phases:
         log("phase serving:")
         serving = phase_serving()
     if "oracle" in phases:
         log("phase oracle:")
         phase_oracle()
-    # a phase left out by --phases leaves its numbers null: launches
-    # come only from the serving run, the rest from the kernel phase
-    entry = dict(name="flash_fwd", route="cuda",
-                 source="horovod_tpu_torch/csrc/flash_fwd.cu",
-                 replaces="horovod_tpu/ops/flash_attention.py:104",
-                 launches=serving["launches"] if serving else None,
-                 max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
-                 bound_by=None, library_ms=None)
-    if kern:
-        main_case = next(r for r in kern if r["case"] == "decode_gqa_bf16")
-        entry.update(max_abs_err=max(r["max_abs_err"] for r in kern),
-                     ms=main_case["kernel_ms"],
-                     plain_ms=main_case["plain_ms"],
-                     bound_ms=main_case["bound_ms"],
-                     bound_by=main_case["bound_by"],
-                     library_ms=main_case["library_ms"])
+    if "training" in phases:
+        log("phase training:")
+        train = phase_training()
+    if "training_oracle" in phases:
+        log("phase training_oracle:")
+        phase_training_oracle()
+    entries = kernel_entries(kern, train_kern, serving, train)
     log(card)
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Shared helpers: environment reads and device selection."""
+"""Shared helpers: environment reads, device selection, the process
+lifecycle (``basics``) and the framework exceptions."""
 
 from .device import resolve_device
 from .retry import env_float, env_int

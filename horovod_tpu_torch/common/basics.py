@@ -1,0 +1,248 @@
+"""Lifecycle and topology over ``torch.distributed``.
+
+Port of ``horovod_tpu/common/basics.py``.  The process model differs
+from the JAX package's on purpose: there one process drives many chips
+inside one SPMD program and a rank is a chip; here, as in the original
+Horovod, there is **one process per GPU**, and a rank is that process.
+Each rank runs its own copy of the training step, and collectives cross
+processes through ``torch.distributed`` — NCCL on the card, gloo on the
+CPU (what the tests use).
+
+Where the ranks come from:
+
+* a launcher's environment: torchrun's ``RANK``, ``WORLD_SIZE``,
+  ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` (and ``MASTER_ADDR`` /
+  ``MASTER_PORT`` for its ``env://`` rendezvous);
+* explicit ``rank=`` / ``size=`` / ``init_method=`` arguments (the tests
+  pass a ``file://`` store in a temporary directory);
+* neither: a single process is world 1, and its rendezvous is a file
+  store in a fresh temporary directory — never a fixed TCP port.
+"""
+
+from __future__ import annotations
+
+import atexit
+import datetime
+import os
+import shutil
+import tempfile
+import threading
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from ..utils.logging import get_logger
+from .exceptions import NotInitializedError
+
+
+class _State:
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.initialized = False
+        self.rank = 0
+        self.size = 1
+        self.local_rank = 0
+        self.local_size = 1
+        self.device: Optional[torch.device] = None
+        self.backend: Optional[str] = None
+        self.store_dir: Optional[str] = None
+
+
+_state = _State()
+#: collectives that wait longer than this fail instead of hanging
+_TIMEOUT_S = 600.0
+
+
+def _env(name: str) -> Optional[int]:
+    raw = os.environ.get(name)
+    return int(raw) if raw not in (None, "") else None
+
+
+def init(device: Optional[Union[str, torch.device]] = None, *,
+         rank: Optional[int] = None, size: Optional[int] = None,
+         init_method: Optional[str] = None) -> None:
+    """Join the job (idempotent).
+
+    ``device=None`` runs on the card ``local_rank`` over NCCL and raises
+    without one; ``device="cpu"`` runs on the CPU over gloo; an explicit
+    CUDA device is taken as given.  ``rank``/``size`` override the
+    launcher's environment (the ranks then share one host);
+    ``init_method`` is any ``torch.distributed`` URL (default:
+    ``env://`` under a launcher, a temporary file store for a lone
+    process)."""
+    with _state.lock:
+        if _state.initialized:
+            return
+        launched = _env("WORLD_SIZE") is not None
+        size = size if size is not None else (_env("WORLD_SIZE") or 1)
+        rank = rank if rank is not None else (_env("RANK") or 0)
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} outside world of size {size}")
+        local_rank = _env("LOCAL_RANK")
+        if local_rank is None:
+            local_rank = 0 if launched else rank
+        local_size = _env("LOCAL_WORLD_SIZE") or size
+        dev = _resolve(device, local_rank)
+        backend = "gloo" if dev.type == "cpu" else "nccl"
+        timeout = datetime.timedelta(seconds=_TIMEOUT_S)
+        if init_method is None and size == 1 and not launched:
+            _state.store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")
+            store = dist.FileStore(os.path.join(_state.store_dir, "store"), 1)
+            dist.init_process_group(backend, store=store, rank=0,
+                                    world_size=1, timeout=timeout)
+        else:
+            dist.init_process_group(backend, init_method=init_method or
+                                    "env://", rank=rank, world_size=size,
+                                    timeout=timeout)
+        _state.rank, _state.size = rank, size
+        _state.local_rank, _state.local_size = local_rank, local_size
+        _state.device, _state.backend = dev, backend
+        _state.initialized = True
+        get_logger().info("initialized: rank %d of %d on %s (%s)",
+                          rank, size, dev, backend)
+
+
+def _resolve(device, local_rank: int) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the ranks on the CPU over gloo")
+        count = torch.cuda.device_count()
+        if local_rank >= count:
+            raise RuntimeError(f"local rank {local_rank} has no card "
+                               f"({count} visible): one process per GPU")
+        dev = torch.device("cuda", local_rank)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but no CUDA "
+                               f"device is available")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def shutdown() -> None:
+    """Leave the job: destroy the process group this module created and
+    remove its temporary store (reference: horovod_shutdown)."""
+    with _state.lock:
+        if not _state.initialized:
+            return
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if _state.store_dir is not None:
+            shutil.rmtree(_state.store_dir, ignore_errors=True)
+            _state.store_dir = None
+        _state.initialized = False
+        _state.device = _state.backend = None
+
+
+atexit.register(shutdown)
+
+
+def _require_init() -> _State:
+    if not _state.initialized:
+        raise NotInitializedError()
+    return _state
+
+
+def is_initialized() -> bool:
+    return _state.initialized
+
+
+def rank() -> int:
+    """This process's rank (reference: horovod_rank)."""
+    return _require_init().rank
+
+
+def size() -> int:
+    """Number of ranks = processes = GPUs (reference: horovod_size)."""
+    return _require_init().size
+
+
+def local_rank() -> int:
+    """Rank among the processes of this host; picks the card."""
+    return _require_init().local_rank
+
+
+def local_size() -> int:
+    """Processes on this host."""
+    return _require_init().local_size
+
+
+def cross_rank() -> int:
+    """Index of this host (reference: horovod_cross_rank)."""
+    st = _require_init()
+    return st.rank // st.local_size
+
+
+def cross_size() -> int:
+    """Number of hosts (reference: horovod_cross_size)."""
+    st = _require_init()
+    return max(1, st.size // st.local_size)
+
+
+def is_homogeneous() -> bool:
+    """Equal process counts on every host."""
+    st = _require_init()
+    return st.size % st.local_size == 0
+
+
+def device() -> torch.device:
+    """The device this rank runs on."""
+    return _require_init().device
+
+
+# Build-capability probes (reference: horovod/common/basics.py).
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def mpi_enabled() -> bool:
+    return False  # the port runs over NCCL or gloo
+
+
+def gloo_enabled() -> bool:
+    return _state.initialized and _state.backend == "gloo"
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def xla_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def native_built() -> bool:
+    """The JAX package's C++ controller core is not ported (NCCL and gloo
+    do its work here)."""
+    return False

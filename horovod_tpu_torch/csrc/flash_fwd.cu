@@ -1,31 +1,35 @@
-// Paged flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++.
 //
-// Replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel in its
-// per-row-offset launch (flash_chunk_attention / flash_decode_attention):
-// online-softmax attention of a (B, C, H, D) query chunk over gathered
-// (B, S_kv, H_kv, D) cache pages, each batch row at its own global offset
-// (kv_start[b] - q_start[b]), with the padding, causal and sliding-window
-// masks of _tile_mask applied on global positions.  It is always causal,
-// and every gathered key is valid (_tile_mask's seq_len is S_kv), as in
-// the serving launch; the training launch will add what it needs.
+// Replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel in both of its
+// launches: online-softmax attention of a (B, C, H, D) query block over
+// (B, S, H_kv, D) keys and values, with the padding, causal and
+// sliding-window masks of _tile_mask applied on global positions.
+//   * per-row-offset launch (flash_chunk_attention / flash_decode_attention,
+//     the serving path): each batch row at its own global offset
+//     kv_start[b] - q_start[b], always causal, every gathered key valid;
+//   * uniform-offset launch (_forward_impl, the training path's
+//     flash_attention): offset 0 for every row, causal or bidirectional,
+//     with or without a window, C = S; it also writes the log-sum-exp the
+//     backward kernels (flash_bwd.cu) recompute the probabilities from.
 //
 // What bounds it on an H100: a decode step (C = 1) reads every live K/V
 // byte once and does ~1 FLOP per byte, so it is bound by the 3.35 TB/s of
-// device memory; a chunked-prefill step (C = 256) does ~C FLOPs per K/V
-// byte and is bound by arithmetic.  This first design is simple and
-// correct rather than fast: K/V tiles are staged through shared memory by
-// the whole block with 16-byte loads (coalesced, the part that matters
-// for decode), the products run on the CUDA cores in fp32 (no wgmma, no
-// TMA — those are the later PRs' work), and decode splits each K/V tile
-// across the four warps (each keeps its own softmax statistics, merged
-// at the end) so a one-row query keeps all four warps busy.
+// device memory; a chunked-prefill step or a training forward does ~C
+// FLOPs per K/V byte and is bound by arithmetic.  This first design is
+// simple and correct rather than fast: K/V tiles are staged through shared
+// memory by the whole block with 16-byte loads (coalesced, the part that
+// matters for decode), the products run on the CUDA cores in fp32 (no
+// wgmma, no TMA — those are the later PRs' work), and decode splits each
+// K/V tile across the four warps (each keeps its own softmax statistics,
+// merged at the end) so a one-row query keeps all four warps busy.
 //
 // Layout of the work:
 //   grid  = (B*H, ceil(C / BQ)): one block per (batch*head, Q tile);
-//   block = 4 warps.  Chunk config: each warp owns 4 query rows and
-//   every lane one key of the 32-key tile (the tile's scores of a row are
-//   one warp register each, so the row max/sum are warp shuffles).
-//   Decode config: one query row, the 128-key tile split in four.
+//   block = 4 warps.  Chunk config (training, prefill): each warp owns 4
+//   query rows (BQ = 16) and every lane one key of the 32-key tile (the
+//   tile's scores of a row are one warp register each, so the row max/sum
+//   are warp shuffles).  Decode config: one query row, the 128-key tile
+//   split in four.
 // Query head h reads kv head h / (H / H_kv) (GQA, no repeat); q, k, v and
 // o are read and written through their strides (last dim contiguous).
 //
@@ -35,17 +39,15 @@
 // sentinel as its max, where exp(s - m) would be 1); rows with no visible
 // key write zeros and the -1e30 log-sum-exp sentinel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace hvd_flash;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kKeysPerWarp = 32;
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const void* q;
@@ -60,57 +62,9 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_sc, o_sh;
   int window;  // window <= 0: none
+  int causal;
   float sm_scale;
 };
-
-// elements of T in one 16-byte vector
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// floor division for b > 0 (Python / jnp.floor_divide semantics)
-__device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && (a < 0)) --q;
-  return q;
-}
 
 // RPW: query rows per warp; KSPLIT: warps sharing one row set, each on
 // its own 32-key slice of the tile; DMAX: head_dim bucket (D <= DMAX).
@@ -160,11 +114,9 @@ flash_fwd_kernel(const Params p) {
     for (int i = 0; i < VEC; ++i) q_s[r * D + d0 + i] = tmp[i] * p.sm_scale;
   }
 
-  // K-tile loop bounds: _kb_range on global positions (causal)
   const int win = p.window;
-  const int hi = max(0, min((p.S + BK - 1) / BK,
-                            floor_div(q0 + BQ - 1 - kv_off, BK) + 1));
-  const int lo = win > 0 ? max(0, floor_div(q0 - (win - 1) - kv_off, BK)) : 0;
+  const int2 range = kb_range(q0, BQ, BK, (p.S + BK - 1) / BK, p.causal,
+                              win, kv_off);
 
   float m[RPW], l[RPW], acc[RPW][NJ];
 #pragma unroll
@@ -176,7 +128,7 @@ flash_fwd_kernel(const Params p) {
   }
 
   const int my_key = split * kKeysPerWarp + lane;  // row of the tile
-  for (int kb = lo; kb < hi; ++kb) {
+  for (int kb = range.x; kb < range.y; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // every warp is done with the previous tile
     for (int idx = threadIdx.x; idx < BK * dvecs; idx += kThreads) {
@@ -185,7 +137,7 @@ flash_fwd_kernel(const Params p) {
       const int key = k0 + r;
       uint4 kv = make_uint4(0, 0, 0, 0);
       uint4 vv = make_uint4(0, 0, 0, 0);
-      if (key < p.S) {  // past the gathered length: zeros, never NaN
+      if (key < p.S) {  // past the key length: zeros, never NaN
         kv = *reinterpret_cast<const uint4*>(kg + key * p.k_ss + d0);
         vv = *reinterpret_cast<const uint4*>(vg + key * p.v_ss + d0);
       }
@@ -219,9 +171,7 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       const int q_pos = q0 + rg * RPW + r;
-      const int rel = q_pos - key - kv_off;  // global q_pos - k_pos
-      // _tile_mask: padding (seq_len = S), causal, sliding window
-      const bool ok = key < p.S && rel >= 0 && (win <= 0 || rel < win);
+      const bool ok = visible(q_pos, key, p.S, kv_off, p.causal, win);
       const float sv = ok ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sv));
       const float pr = ok ? expf(sv - m_new) : 0.f;
@@ -317,12 +267,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
                       2ull * BK * (p.D + VEC) * sizeof(T);
   auto kern = flash_fwd_kernel<T, RPW, KSPLIT, DMAX>;
   static size_t smem_allowed = 48 * 1024;  // per instantiation
-  if (smem > smem_allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    smem_allowed = smem;
-  }
+  const cudaError_t e = allow_smem(kern, smem, &smem_allowed);
+  if (e != cudaSuccess) return e;
   const dim3 grid(p.B * p.H, (p.C + BQ - 1) / BQ);
   kern<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -338,9 +284,9 @@ cudaError_t launch_d(const Params& p, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_t(const Params& p, cudaStream_t stream) {
   // a few query rows (decode): one row per block, the 128-key tile split
-  // across the four warps; a chunk: 16 rows per block, 4 per warp (also
-  // the decode fallback where a 128-key fp32 tile of D > 128 would not
-  // fit the 227 KB of shared memory)
+  // across the four warps; a chunk or a training sequence: 16 rows per
+  // block, 4 per warp (also the decode fallback where a 128-key fp32 tile
+  // of D > 128 would not fit the 227 KB of shared memory)
   const size_t split_tile = 2ull * 4 * kKeysPerWarp *
                             (p.D + Vec<T>::N) * sizeof(T);
   if (p.C <= 4 && split_tile <= 160 * 1024)
@@ -357,13 +303,13 @@ extern "C" int hvd_flash_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sc, long long o_sh,
-    int window, float sm_scale, int is_bf16, void* stream) {
+    int window, int causal, float sm_scale, int is_bf16, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 8 != 0 || D > 256)
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, lse, offs, B, C, H, Hkv, S, D,
            q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           o_sb, o_sc, o_sh, window, sm_scale};
+           o_sb, o_sc, o_sh, window, causal, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = is_bf16 ? launch_t<__nv_bfloat16>(p, st)
                                 : launch_t<float>(p, st);

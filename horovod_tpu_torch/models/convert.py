@@ -1,12 +1,15 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from and back to the JAX package.
 
 :func:`params_from_flax` takes the JAX ``Transformer``'s params tree as
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and
 returns the port's state dict: the same leaf names, ``/`` becoming
 ``.`` (``embed/embedding`` -> ``embed.embedding``,
-``layer_3/attn/q/kernel`` -> ``layer_3.attn.q.kernel``), matrices cast
-to ``cfg.dtype`` (what flax does before each product) and norm scales
-kept fp32.  This module never imports JAX.
+``layer_3/attn/q/kernel`` -> ``layer_3.attn.q.kernel``), norm scales
+fp32 and matrices either cast to ``cfg.dtype`` (the serving copy: what
+flax does before each product) or kept fp32 (``param_dtype=
+torch.float32``: the training masters, as flax keeps them).
+:func:`params_to_numpy_tree` goes back, so trained weights can be laid
+beside the JAX ones.  This module never imports JAX.
 """
 
 from __future__ import annotations
@@ -31,15 +34,17 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def params_from_flax(np_tree: Mapping, cfg: TransformerConfig,
-                     device=None) -> Dict[str, torch.Tensor]:
-    """The port's state dict from a flax params tree of numpy arrays.
-    Every leaf the config needs must be present with its flax shape, and
-    nothing else may be: a mismatch raises ``ValueError``."""
+                     device=None, param_dtype=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The port's state dict from a flax params tree of numpy arrays,
+    matrices in ``param_dtype`` (default ``cfg.dtype``).  Every leaf the
+    config needs must be present with its flax shape, and nothing else
+    may be: a mismatch raises ``ValueError``."""
     from ..common.device import resolve_device
 
     dev = resolve_device(device)
     flat = _flatten(np_tree)
-    want = param_shapes(cfg)
+    want = param_shapes(cfg, param_dtype)
     extra = sorted(set(flat) - set(want))
     missing = sorted(set(want) - set(flat))
     if extra or missing:
@@ -54,3 +59,17 @@ def params_from_flax(np_tree: Mapping, cfg: TransformerConfig,
         t = torch.from_numpy(np.array(arr, dtype=np.float32))  # own copy
         out[key] = t.to(device=dev, dtype=dtype)
     return out
+
+
+def params_to_numpy_tree(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The flax-shaped nested dict of fp32 numpy arrays for a port state
+    dict (``model.state_dict()``): the inverse of
+    :func:`params_from_flax`'s renaming."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().to("cpu", torch.float32).numpy()
+    return tree

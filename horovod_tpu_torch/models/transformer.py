@@ -1,33 +1,34 @@
-"""GPT-style decoder-only transformer in PyTorch (forward only).
+"""GPT-style decoder-only transformer in PyTorch, for serving and training.
 
-Port of ``horovod_tpu/models/transformer.py`` for serving: the same
-config, the same pre-norm blocks (RMSNorm eps 1e-5, RoPE, GQA
-attention, SiLU-gated MLP, tied embedding) and the same numerics, so
-logits match the flax model on the same weights.  Two attention paths:
+Port of ``horovod_tpu/models/transformer.py``: the same config, the same
+pre-norm blocks (RMSNorm eps 1e-5, RoPE, GQA attention, SiLU-gated MLP,
+tied embedding) and the same numerics, so logits and gradients match the
+flax model on the same weights.  Three attention paths:
 
 * ``paged`` (the serving engine's): K/V are written into and gathered
   from the paged cache (``serving/kv_cache.py``) and attention runs
   through the hand-written kernel of ``ops/flash_attention.py`` — for
   ``attention_impl`` "dot" and "flash" alike, as in the JAX package;
-* the plain dense ``"dot"`` path (:func:`causal_dot_attention`), which
-  the cache-free oracle uses.
-
-A non-paged ``"flash"`` forward needs the backward kernels and comes
-with the training slice; it raises ``NotImplementedError`` until then.
+* ``"flash"`` (training): :func:`~horovod_tpu_torch.ops.flash_attention.
+  flash_attention`, whose forward and backward are the hand-written
+  kernels;
+* ``"dot"``: the plain dense :func:`causal_dot_attention` (the oracle).
 
 Weights keep the flax layout and names (``embed.embedding``,
 ``layer_{i}.attn.{q,k,v}.kernel`` (D, H, hd), ``attn.o.kernel``
 (H, hd, D), ``mlp.{gate,up,down}.kernel``, ``ln{1,2}.scale``,
-``ln_f.scale``).  Matrices are stored in ``cfg.dtype``: flax casts its
-fp32 kernels to ``cfg.dtype`` before every product, so storing them cast
-is bit-equivalent.  Norm scales stay fp32 (flax multiplies them in fp32).
+``ln_f.scale``).  Norm scales are fp32.  Matrices may be fp32 — the
+training masters, as flax keeps them — or already ``cfg.dtype`` — the
+serving copy: each is cast to ``cfg.dtype`` where it is used, as flax
+casts before every product, and for a weight already in ``cfg.dtype``
+that cast is a no-op.  Activation remat is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -35,15 +36,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..common.device import resolve_device
-from ..ops.flash_attention import flash_chunk_attention, flash_decode_attention
+from ..ops.flash_attention import (
+    flash_attention, flash_chunk_attention, flash_decode_attention,
+)
 
 _NORM_EPS = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Model shape and numerics (the JAX config's serving-relevant
-    fields; ``d_model = num_heads * head_dim``)."""
+    """Model shape and numerics (the JAX config's fields this port runs;
+    ``d_model = num_heads * head_dim``)."""
 
     vocab_size: int = 32000
     num_layers: int = 12
@@ -61,6 +64,10 @@ class TransformerConfig:
     #: sliding window: each token attends the last `window` positions,
     #: itself included
     window: Optional[int] = None
+    #: activation remat (the JAX config's switches); only the default,
+    #: no remat, is ported
+    remat: bool = False
+    remat_policy: Any = None
 
     def __post_init__(self):
         kv = self.num_kv_heads
@@ -70,6 +77,13 @@ class TransformerConfig:
                 f"num_kv_heads ({kv})")
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window}")
+        policy = self.remat_policy
+        policies = ((policy,) if isinstance(policy, str)
+                    else tuple(policy or ()))
+        if self.remat or any(p != "none" for p in policies):
+            raise NotImplementedError(
+                "activation remat (remat=True / remat_policy) is not "
+                "ported yet; queued in ROADMAP")
 
     @property
     def d_model(self) -> int:
@@ -137,13 +151,15 @@ def causal_dot_attention(q, k, v, *, q_offset=0, k_offset=0, causal=True,
     ).reshape(b, s_q, h, d)
 
 
-def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+def param_shapes(cfg: TransformerConfig, param_dtype=None
+                 ) -> Dict[str, tuple]:
     """``{state-dict key: (shape, dtype)}`` in creation order — the one
     definition :class:`Transformer`, :func:`init_params` and the flax
-    bridge share."""
+    bridge share.  Matrices are ``param_dtype`` (default ``cfg.dtype``,
+    the serving copy; fp32 for training masters), norm scales fp32."""
     d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.kv_heads
     f = d * cfg.mlp_ratio
-    w, n = cfg.dtype, torch.float32
+    w, n = param_dtype or cfg.dtype, torch.float32
     out = {"embed.embedding": ((cfg.vocab_size, d), w)}
     for i in range(cfg.num_layers):
         p = f"layer_{i}."
@@ -163,14 +179,13 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
 
 
 class _Weight(nn.Module):
-    """One parameter named like its flax leaf (``kernel`` / ``scale`` /
-    ``embedding``)."""
+    """One trainable parameter named like its flax leaf (``kernel`` /
+    ``scale`` / ``embedding``)."""
 
     def __init__(self, name: str, shape, dtype, device):
         super().__init__()
         self.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device),
-            requires_grad=False))
+            torch.empty(shape, dtype=dtype, device=device)))
 
 
 class RMSNorm(nn.Module):
@@ -181,8 +196,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.scale = nn.Parameter(
-            torch.empty((dim,), dtype=torch.float32, device=device),
-            requires_grad=False)
+            torch.empty((dim,), dtype=torch.float32, device=device))
 
     def forward(self, x):
         xf = x.float()
@@ -209,9 +223,10 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, paged=None, layer: int = 0):
         cfg = self.cfg
-        q = rope(self._proj(x, self.q.kernel), positions)
-        k = rope(self._proj(x, self.k.kernel), positions)
-        v = self._proj(x, self.v.kernel)
+        w = cfg.dtype  # flax casts each fp32 kernel before its product
+        q = rope(self._proj(x, self.q.kernel.to(w)), positions)
+        k = rope(self._proj(x, self.k.kernel.to(w)), positions)
+        v = self._proj(x, self.v.kernel.to(w))
         if paged is not None:
             # serving path: chunk mode writes each row's chunk at its own
             # offset then attends the gathered pages with per-row global
@@ -236,10 +251,8 @@ class Attention(nn.Module):
                     q, gk, gv, paged.lens + 1, window=cfg.window,
                     kv_start=kv_start)
         elif cfg.attention_impl == "flash":
-            raise NotImplementedError(
-                "the non-paged flash forward needs the backward kernels and "
-                "comes with the training slice; use attention_impl='dot' or "
-                "the paged serving path")
+            out = flash_attention(q, k, v, causal=cfg.causal,
+                                  window=cfg.window)
         elif cfg.attention_impl != "dot":
             raise NotImplementedError(
                 f"attention_impl {cfg.attention_impl!r} is not ported yet")
@@ -248,20 +261,22 @@ class Attention(nn.Module):
                                        window=cfg.window)
         h, hd, d = self.o.kernel.shape
         return out.reshape(*out.shape[:-2], h * hd) @ \
-            self.o.kernel.reshape(h * hd, d)
+            self.o.kernel.to(w).reshape(h * hd, d)
 
 
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_model * cfg.mlp_ratio
+        self.dtype = cfg.dtype
         self.gate = _Weight("kernel", (d, f), cfg.dtype, device)
         self.up = _Weight("kernel", (d, f), cfg.dtype, device)
         self.down = _Weight("kernel", (f, d), cfg.dtype, device)
 
     def forward(self, x):
-        return (F.silu(x @ self.gate.kernel) * (x @ self.up.kernel)) \
-            @ self.down.kernel
+        w = self.dtype
+        return (F.silu(x @ self.gate.kernel.to(w))
+                * (x @ self.up.kernel.to(w))) @ self.down.kernel.to(w)
 
 
 class Block(nn.Module):
@@ -282,10 +297,11 @@ class Transformer(nn.Module):
     logits`` (in ``cfg.dtype``, as flax's ``Embed.attend`` returns them).
 
     ``params`` (a state dict as from :func:`init_params` or
-    :func:`~horovod_tpu_torch.models.convert.params_from_flax`) is
-    adopted without a copy, on the device it lies on; without it the
-    weights are uninitialized storage on ``device`` (default: the first
-    CUDA card; raises without one)."""
+    :func:`~horovod_tpu_torch.models.convert.params_from_flax`, matrices
+    in ``cfg.dtype`` or fp32) is adopted without a copy, on the device it
+    lies on; without it the weights are uninitialized storage on
+    ``device`` (default: the first CUDA card; raises without one).  Every
+    weight is a trainable parameter."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  params: Optional[Dict[str, torch.Tensor]] = None):
@@ -298,13 +314,15 @@ class Transformer(nn.Module):
             self.add_module(f"layer_{i}", Block(cfg, build_on))
         self.ln_f = RMSNorm(cfg.d_model, cfg.dtype, build_on)
         if params is not None:
-            want = param_shapes(cfg)
-            for key, (shape, dtype) in want.items():
+            for key, (shape, dtype) in param_shapes(cfg).items():
                 t = params.get(key)
-                if t is None or tuple(t.shape) != shape or t.dtype != dtype:
+                allowed = (dtype,) if key.endswith(".scale") else \
+                    (cfg.dtype, torch.float32)
+                if t is None or tuple(t.shape) != shape \
+                        or t.dtype not in allowed:
                     got = None if t is None else (tuple(t.shape), t.dtype)
                     raise ValueError(
-                        f"param {key}: want {(shape, dtype)}, got {got}")
+                        f"param {key}: want {shape} in {allowed}, got {got}")
             self.load_state_dict(params, strict=True, assign=True)
 
     def forward(self, tokens, positions=None, paged=None):
@@ -312,25 +330,30 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        x = self.embed.embedding[tokens]
+        # nn.Embed: the gathered rows in cfg.dtype
+        x = self.embed.embedding[tokens].to(cfg.dtype)
         for i in range(cfg.num_layers):
             x = getattr(self, f"layer_{i}")(x, positions, paged, i)
         x = self.ln_f(x)
-        # flax Embed.attend: the fp32 query is cast back to cfg.dtype
-        return x.float().to(cfg.dtype) @ self.embed.embedding.t()
+        # flax Embed.attend: the fp32 query and the table, cast to
+        # cfg.dtype
+        return x.float().to(cfg.dtype) @ self.embed.embedding.to(
+            cfg.dtype).t()
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device=None) -> Dict[str, torch.Tensor]:
+                device=None, param_dtype=None) -> Dict[str, torch.Tensor]:
     """Random weights at flax's init scales, made on ``device`` from
     ``generator`` (which must live on that device): embedding
     ``N(0, 1/d_model)``; every kernel lecun-normal (a normal truncated at
     two standard deviations, scaled so its std is ``1/sqrt(fan_in)``,
-    fan_in = the contracted input width); norm scales ones."""
+    fan_in = the contracted input width); norm scales ones.  Matrices
+    come in ``param_dtype``: ``cfg.dtype`` by default (serving), fp32
+    for the training masters."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
-        for key, (shape, dtype) in param_shapes(cfg).items():
+        for key, (shape, dtype) in param_shapes(cfg, param_dtype).items():
             # drawn in fp32, then cast (as flax casts its fp32 params)
             t = torch.empty(shape, dtype=torch.float32, device=dev)
             if key.endswith(".scale"):
@@ -349,6 +372,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 # Named sizes (the JAX package's presets).
+def gpt_small(**kw) -> TransformerConfig:
+    """GPT-2-small widths: 12 layers, 12 heads of 64, d_model 768 (depth
+    may be cut with ``num_layers``)."""
+    kw.setdefault("num_layers", 12)
+    return TransformerConfig(num_heads=12, head_dim=64, **kw)
+
+
 def gpt_tiny(**kw) -> TransformerConfig:
     return TransformerConfig(vocab_size=256, num_layers=2, num_heads=2,
                              head_dim=16, max_seq_len=128, **kw)

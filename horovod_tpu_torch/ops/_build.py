@@ -31,8 +31,9 @@ BUILD_DIR = PKG_DIR.parent / "build" / "horovod_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: the kernel sources this package builds (one library each)
-SOURCES = ("flash_fwd.cu",)
+#: the kernel sources this package builds (one library each); each may
+#: include the shared headers (``csrc/*.cuh``)
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -57,8 +58,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

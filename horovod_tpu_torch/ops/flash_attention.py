@@ -1,30 +1,37 @@
-"""Paged flash attention: the serving path's attention kernel.
+"""Flash attention: the attention kernels of the serving and training paths.
 
-Port of ``horovod_tpu/ops/flash_attention.py``'s per-row-offset entries
-(``flash_chunk_attention`` / ``flash_decode_attention``), which launch
-the Pallas ``_fwd_kernel`` with one kv offset per batch row.  Here the
-kernel is CUDA C++ for Hopper (``csrc/flash_fwd.cu``, built at first use
-by :mod:`._build`); its source note says what bounds it on the card and
-what its design does about that.
+Port of ``horovod_tpu/ops/flash_attention.py``.  The Pallas kernels
+become CUDA C++ for Hopper, built at first use by :mod:`._build`; each
+source's note says what bounds it on the card and what its design does
+about that:
 
-Beside the kernel, and computing the same function:
+* ``csrc/flash_fwd.cu`` — ``_fwd_kernel`` in both of its launches: the
+  per-row-offset one (:func:`flash_chunk_attention`,
+  :func:`flash_decode_attention`, the serving path) and the
+  uniform-offset one (the forward of :func:`flash_attention`, which also
+  writes the log-sum-exp);
+* ``csrc/flash_bwd.cu`` — ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the
+  backward of :func:`flash_attention`.
 
-* :func:`flash_chunk_attention_reference` — the plain PyTorch version
-  (dense fp32 logits, the same global-position mask, a masked softmax
-  that returns 0 for fully masked rows).  The CPU path and the tests use
-  it; ``chip_smoke.py`` holds the kernel against it on the card.
-* :func:`_tile_mask` / :func:`_kb_range` — the mask and the K-block loop
-  bounds of the JAX kernel, mirrored exactly (the CUDA kernel applies
-  the same two rules to its own tiles).
+Beside each kernel, computing the same function in plain PyTorch:
+:func:`flash_chunk_attention_reference`, :func:`flash_attention_reference`,
+:func:`flash_bwd_dq_reference` and :func:`flash_bwd_dkv_reference`
+(dense fp32 logits, the same mask, masked entries zeroed).  The CPU path
+and the tests use them; ``chip_smoke.py`` holds each kernel against its
+plain version on the card.  :func:`_tile_mask`, :func:`_kb_range` and
+:func:`_qb_range` mirror the JAX kernels' mask and loop bounds exactly
+(the CUDA kernels apply the same rules to their own tiles).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
-the plain version, CUDA tensors launch the kernel (or raise).
+the plain versions, CUDA tensors launch the kernels (or raise).  Each
+kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -61,6 +68,18 @@ def _kb_range(q_off, block_q, block_k, padded_kb, causal, window, kv_off=0):
     return lo, max(hi, 0)
 
 
+def _qb_range(k_off, block_k, block_q, n_qb, causal, window, kv_off=0):
+    """Q-block loop bounds ``[lo, hi)`` of the dK/dV kernel for the K
+    block at ``k_off``: :func:`_kb_range` with the q and k roles swapped
+    and the offset negated (the window's reach is symmetric), joined by
+    max with the causal lower bound — the first Q block at or after the
+    shifted diagonal (``_bwd_dkv_kernel``'s bounds)."""
+    lo, hi = _kb_range(k_off, block_k, block_q, n_qb, False, window, -kv_off)
+    if causal:
+        lo = max(lo, max(0, (k_off + kv_off) // block_q))
+    return lo, hi
+
+
 def _group_of(q, k) -> int:
     h, h_kv = q.shape[2], k.shape[2]
     if h_kv <= 0 or h % h_kv:
@@ -79,54 +98,130 @@ def _row_offsets(q_starts, kv_start, b, device) -> torch.Tensor:
     return ks.reshape(b) - qs
 
 
+def _grouped_dots(x, kv):
+    """(B, H, C, S) fp32 products of x (B, C, H, D) with every row of kv
+    (B, S, H_kv, D); query head h reads kv head h // group."""
+    b, c, h, d = x.shape
+    h_kv, s_k = kv.shape[2], kv.shape[1]
+    return torch.einsum(
+        "bchgd,bshd->bhgcs", x.float().reshape(b, c, h_kv, h // h_kv, d),
+        kv.float()).reshape(b, h, c, s_k)
+
+
+def _grouped_logits(q, k):
+    """Logits of ``q·sm_scale`` (q cast to fp32 first, as the kernels
+    do) against every key."""
+    return _grouped_dots(q.float() * (1.0 / (q.shape[-1] ** 0.5)), k)
+
+
+def _masked_attention(q, k, v, mask):
+    """Dense masked softmax attention: ``mask`` broadcasts to (B, H, C,
+    S).  Returns the output in q's dtype and the (B, H, C) fp32
+    log-sum-exp of the scaled logits, with fully masked rows at 0 and
+    the −1e30 sentinel — the kernels' contract."""
+    b, c, h, d = q.shape
+    h_kv, s_k = k.shape[2], k.shape[1]
+    logits = torch.where(mask, _grouped_logits(q, k),
+                         torch.tensor(_NEG_INF, device=q.device))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum(
+        "bhgcs,bshd->bchgd", p.reshape(b, h_kv, h // h_kv, c, s_k), v.float(),
+    ).reshape(b, c, h, d)
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))  # (B, H, C, 1)
+    out = out / safe_l.permute(0, 2, 1, 3)
+    lse = torch.where(l > 0, m + torch.log(safe_l),
+                      torch.full_like(l, _NEG_INF))[..., 0]
+    return out.to(q.dtype), lse
+
+
 def flash_chunk_attention_reference(q, k, v, q_starts, *, window=None,
                                     kv_start=None):
     """Plain PyTorch version of :func:`flash_chunk_attention`: dense fp32
     logits of q·sm_scale against every gathered key, the ``_tile_mask``
     on global positions, and a masked softmax whose fully masked rows
     come out as 0.  Same arguments and output as the kernel's entry."""
-    b, c, h, d = q.shape
-    group = _group_of(q, k)
-    h_kv, s_k = k.shape[2], k.shape[1]
+    b, c = q.shape[:2]
+    _group_of(q, k)
+    s_k = k.shape[1]
     offs = _row_offsets(q_starts, kv_start, b, q.device)
-    qf = q.float() * (1.0 / (d ** 0.5))
-    kf, vf = k.float(), v.float()
-    logits = torch.einsum(
-        "bchgd,bshd->bhgcs", qf.reshape(b, c, h_kv, group, d), kf,
-    ).reshape(b, h, c, s_k)
     q_pos = torch.arange(c, device=q.device)[None, :, None]
     k_pos = torch.arange(s_k, device=q.device)[None, None, :]
     mask = _tile_mask(q_pos, k_pos, True, window, s_k,
                       offs.long()[:, None, None])[:, None]  # (B,1,C,S)
-    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum(
-        "bhgcs,bshd->bchgd", p.reshape(b, h_kv, group, c, s_k), vf,
-    ).reshape(b, c, h, d)
-    safe_l = torch.where(l > 0, l, torch.ones_like(l))  # (B, H, C, 1)
-    out = out / safe_l.permute(0, 2, 1, 3)
-    return out.to(q.dtype)
+    return _masked_attention(q, k, v, mask)[0]
 
 
-def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False):
-    """Launch the CUDA kernel (``csrc/flash_fwd.cu``) on CUDA tensors:
-    causal attention on global positions, every gathered key valid.
+def _self_mask(s, causal, window, device):
+    """(S, S) ``_tile_mask`` of self-attention: offset 0, every key and
+    every query row valid (``_recompute_p``'s ``q_pos < seq_len`` holds
+    for every row of an unpadded tensor)."""
+    pos = torch.arange(s, device=device)
+    return _tile_mask(pos[:, None], pos[None, :], causal, window,
+                      s).expand(s, s)
 
-    q: (B, C, H, D); k, v: (B, S, H_kv, D) with ``H_kv | H``; offs: (B,)
-    int32 global K start minus global Q start per row.  bf16 or fp32,
-    last dim contiguous and 16-byte aligned rows, D a multiple of 8 up
-    to 256.
-    Returns o (B, C, H, D) in q's dtype, plus the fp32 log-sum-exp
-    (B, H, C) when ``with_lse``.  Raises on anything the kernel does
-    not take and on a launch error; ``flash_fwd_cuda.launches`` counts
-    successful launches."""
-    from . import _build
 
-    b, c, h, d = q.shape
-    s_k = k.shape[1]
-    for name, t in (("q", q), ("k", k), ("v", v), ("offs", offs)):
+def flash_attention_reference(q, k, v, causal=True, window=None):
+    """Plain PyTorch version of the forward kernel's uniform-offset
+    launch: ``(out, lse)`` with out (B, S, H, D) in q's dtype and lse
+    (B, H, S) fp32 — dense fp32 logits of q·sm_scale, the self-attention
+    ``_tile_mask``, a masked softmax."""
+    _group_of(q, k)
+    return _masked_attention(q, k, v,
+                             _self_mask(q.shape[1], causal, window, q.device))
+
+
+def _recompute_p(q, k, lse, causal, window):
+    """(B, H, S, S) fp32 probabilities from the saved lse, masked entries
+    zeroed explicitly (``_recompute_p``)."""
+    mask = _self_mask(q.shape[1], causal, window, q.device)
+    p = torch.exp(_grouped_logits(q, k) - lse[..., None])
+    return torch.where(mask, p, torch.zeros_like(p))
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
+                           window=None):
+    """Plain PyTorch version of the dq kernel: P from the saved lse
+    (B, H, S), ``dS = P∘(dO·Vᵀ − δ)`` with δ (B, H, S),
+    ``dQ = dS·K · sm_scale``; returns dQ (B, S, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    h_kv = k.shape[2]
+    p = _recompute_p(q, k, lse, causal, window)
+    ds = p * (_grouped_dots(do, v) - delta[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd",
+                      ds.reshape(b, h_kv, h // h_kv, s, s), k.float())
+    return (dq.reshape(b, s, h, d) * (1.0 / (d ** 0.5))).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
+                            window=None):
+    """Plain PyTorch version of the dkv kernel: ``dV = Σ Pᵀ·dO`` and
+    ``dK = Σ dSᵀ·Q · sm_scale``, each summed over the query heads that
+    share a kv head; returns (dK, dV) (B, S, H_kv, D) in k's dtype."""
+    b, s, h, d = q.shape
+    h_kv = k.shape[2]
+    p = _recompute_p(q, k, lse, causal, window)
+    ds = p * (_grouped_dots(do, v) - delta[..., None])
+
+    def per_kv(x, y):  # Σ over the group of xᵀ·y -> (B, S, H_kv, D)
+        out = torch.einsum("bhqk,bqhd->bkhd", x, y.float())
+        return out.reshape(b, s, h_kv, h // h_kv, d).sum(dim=3)
+
+    dk = per_kv(ds, q) * (1.0 / (d ** 0.5))
+    return dk.to(k.dtype), per_kv(p, do).to(v.dtype)
+
+
+# -- the kernels --------------------------------------------------------------
+
+
+def _check_cuda(q, k, v, *extra):
+    """Raise unless q/k/v (and ``extra`` (name, tensor) pairs) are CUDA
+    tensors on q's device in one supported dtype, GQA-shaped, with a
+    contiguous last dim and 16-byte aligned rows."""
+    b, _, _, d = q.shape
+    tensors = (("q", q), ("k", k), ("v", v)) + extra
+    for name, t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.device != q.device:
@@ -142,45 +237,159 @@ def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False):
     _group_of(q, k)
     if d % 8 or d > 256:
         raise ValueError(f"head_dim {d} must be a multiple of 8, <= 256")
-    if offs.dtype != torch.int32 or offs.shape != (b,) \
-            or not offs.is_contiguous():
-        raise ValueError("offs must be a contiguous (B,) int32 tensor")
     vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors:
+        if t.dtype != q.dtype or t.dim() != 4:
+            continue
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(
                 f"{name} needs a contiguous last dim and 16-byte aligned "
                 f"rows, got strides {t.stride()}")
+
+
+def _check_stats(b, h, s, device, **stats):
+    for name, t in stats.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s) \
+                or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name} must be a contiguous (B, H, S) fp32 "
+                             f"tensor on {device}")
+
+
+def _launch(lib, fn_name, args):
+    """Call a kernel's C entry with the current stream; raise on a launch
+    error (the C entry returns ``cudaGetLastError()``)."""
+    err = getattr(lib, fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn_name} kernel launch failed: "
+            f"{lib.hvd_cuda_error_string(err).decode()} (code {err})")
+
+
+def _lib(source, entries):
+    """The loaded library of ``csrc/<source>`` with its entries' ctypes
+    signatures set (``entries``: name -> argtypes)."""
+    from . import _build
+
+    lib = _build.library(source)
+    if lib.hvd_cuda_error_string.restype is not ctypes.c_char_p:
+        for name, argtypes in entries.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_FWD_ARGS = {"hvd_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 12
+             + [_I, _I, _F, _I, _P]}
+_BWD_ARGS = {
+    "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
+    "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
+}
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
+                   causal=True):
+    """Launch the forward kernel (``csrc/flash_fwd.cu``) on CUDA tensors:
+    attention on global positions, every key valid.
+
+    q: (B, C, H, D); k, v: (B, S, H_kv, D) with ``H_kv | H``; offs: (B,)
+    int32 global K start minus global Q start per row.  bf16 or fp32,
+    last dim contiguous and 16-byte aligned rows, D a multiple of 8 up
+    to 256.  ``causal=False`` is bidirectional (a window then reaches
+    both ways).
+    Returns o (B, C, H, D) in q's dtype, plus the fp32 log-sum-exp
+    (B, H, C) when ``with_lse``.  Raises on anything the kernel does
+    not take and on a launch error; ``flash_fwd_cuda.launches`` counts
+    successful launches."""
+    b, c, h, d = q.shape
+    _check_cuda(q, k, v, ("offs", offs))
+    if offs.dtype != torch.int32 or offs.shape != (b,) \
+            or not offs.is_contiguous():
+        raise ValueError("offs must be a contiguous (B,) int32 tensor")
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, c), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _build.library("flash_fwd.cu")
-    fn = lib.hvd_flash_fwd
-    if fn.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([P] * 6 + [I] * 6 + [L] * 12
-                       + [I, ctypes.c_float, I, P])
-        fn.restype = I
-        lib.hvd_cuda_error_string.argtypes = [I]
-        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _lib("flash_fwd.cu", _FWD_ARGS)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr() if lse is not None else None,
-                 offs.data_ptr(), b, c, h, k.shape[2], s_k, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *o.stride()[:3], 0 if window is None else int(window),
-                 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed: "
-            f"{lib.hvd_cuda_error_string(err).decode()} (code {err})")
+        _launch(lib, "hvd_flash_fwd", (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None, offs.data_ptr(),
+            b, c, h, k.shape[2], k.shape[1], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], 0 if window is None else int(window),
+            int(bool(causal)), 1.0 / math.sqrt(d),
+            int(q.dtype == torch.bfloat16), _stream(q)))
     flash_fwd_cuda.launches += 1
     return (o, lse) if with_lse else o
 
 
 flash_fwd_cuda.launches = 0
+
+
+def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
+    b, s, h, d = q.shape
+    if k.shape[1] != s:
+        raise ValueError(f"k length {k.shape[1]} != q length {s}")
+    _check_cuda(q, k, v, ("dO", do))
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    _check_stats(b, h, s, q.device, lse=lse, delta=delta)
+    strides = [x for t in (q, k, v, do) + outs for x in t.stride()[:3]]
+    lib = _lib("flash_bwd.cu", _BWD_ARGS)
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(q.device):
+        _launch(lib, entry, (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b, s, h, k.shape[2], d, ctypes.addressof(arr),
+            int(bool(causal)), 0 if window is None else int(window),
+            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q)))
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True, window=None):
+    """Launch the dq kernel (``csrc/flash_bwd.cu``) on CUDA tensors.
+
+    q, dO: (B, S, H, D); k, v: (B, S, H_kv, D); lse, delta: contiguous
+    (B, H, S) fp32.  Same dtype and layout rules as :func:`flash_fwd_cuda`.
+    Returns dQ (B, S, H, D) in q's dtype; ``flash_bwd_dq_cuda.launches``
+    counts successful launches."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_cuda("hvd_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
+              window)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
+                       window=None):
+    """Launch the dkv kernel (``csrc/flash_bwd.cu``) on CUDA tensors (the
+    arguments of :func:`flash_bwd_dq_cuda`).  Returns (dK, dV), each
+    (B, S, H_kv, D) in k's dtype, the query-head group summed;
+    ``flash_bwd_dkv_cuda.launches`` counts successful launches."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_cuda("hvd_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
+              window)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+# -- entry points ------------------------------------------------------------
 
 
 def flash_chunk_attention(q, k, v, q_starts, *, window=None, kv_start=None):
@@ -199,7 +408,7 @@ def flash_chunk_attention(q, k, v, q_starts, *, window=None, kv_start=None):
 
     Output: (B, C, H, D) in q's dtype.  CPU tensors run the plain
     version; CUDA tensors launch the kernel."""
-    b, c, h, d = q.shape
+    b = q.shape[0]
     if k.shape != v.shape:
         raise ValueError(f"k/v shapes differ: {k.shape} vs {v.shape}")
     _group_of(q, k)
@@ -225,3 +434,81 @@ def flash_decode_attention(q, k, v, kv_lens, *, window=None, kv_start=None):
                               device=q.device).reshape(b)
     return flash_chunk_attention(q, k, v, kv_lens - 1, window=window,
                                  kv_start=kv_start)
+
+
+def flash_forward(q, k, v, causal=True, window=None):
+    """The uniform-offset forward: ``(out, lse)``, lse (B, H, S) fp32 —
+    the kernel on CUDA tensors, the plain version on CPU ones."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, window)
+    offs = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+    return flash_fwd_cuda(q, k, v, offs, window=window, with_lse=True,
+                          causal=causal)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
+    """dQ of :func:`flash_attention`: the kernel on CUDA tensors, the
+    plain version on CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window)
+    return flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
+                             window=window)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
+    """(dK, dV) of :func:`flash_attention`: the kernel on CUDA tensors,
+    the plain version on CPU ones."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                       window)
+    return flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
+                              window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash`` with its custom VJP: the forward saves
+    ``(q, k, v, out, lse)``; the backward forms δ = rowsum(dO·O) in fp32
+    from the saved output in its own dtype (``_fold_bwd_invariants``),
+    then runs the dq and dkv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1)  # (B, S, H)
+        delta = delta.transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal, ctx.window)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal,
+                               ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None):
+    """Flash attention over (B, S, H, D) tensors, differentiable: the
+    training path's attention (``horovod_tpu/ops/flash_attention.py::
+    flash_attention``).  Softmax statistics in fp32, output in the input
+    dtype.
+
+    GQA is native: ``k``/``v`` may carry ``H_kv`` heads with ``H_kv | H``
+    (query head ``h`` reads kv head ``h // (H/H_kv)``); their gradients
+    come back in their own (B, S, H_kv, D) shape, nothing repeated.
+    ``causal=False`` is bidirectional; ``window`` is a sliding window
+    (each token attends the last ``window`` positions, itself included;
+    symmetric when bidirectional).  Any S works: the kernels mask the
+    ragged tail of their tiles."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shapes differ: {k.shape} vs {v.shape}")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"k length {k.shape[1]} != q length {q.shape[1]}")
+    _group_of(q, k)
+    return _FlashAttention.apply(q, k, v, bool(causal), window)

@@ -31,9 +31,10 @@ __all__ = [
     "snapshot", "span",
 ]
 
-#: Span/event sites the port records (the serving subset of the JAX
-#: package's catalogue, same names).
+#: Span/event sites the port records (the serving and training subset
+#: of the JAX package's catalogue, same names).
 SITES = (
+    "train.step",          # one training step (fit_epoch; global step)
     "serve.queued",        # request arrival -> admission (per request)
     "serve.prefill_chunk", # one prefill chunk computed (per request)
     "serve.step",          # one mixed/decode engine step (batch-wide)

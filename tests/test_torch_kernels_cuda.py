@@ -91,3 +91,68 @@ def test_engine_on_card_matches_engine_on_cpu():
             assert tfa.flash_fwd_cuda.launches - before == \
                 cfg.num_layers * eng.steps
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (False, 40)])
+def test_flash_attention_backward_matches_plain_versions(dtype, tol, causal,
+                                                         window):
+    """flash_attention on the card (the forward, dq and dkv kernels, one
+    launch each) against the plain versions on the same card: output
+    and gradients; a ragged S and GQA 8/2."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(7)
+    b, s, h, h_kv, d = 2, 333, 8, 2, 64
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device="cuda").to(dtype)
+    q, k, v, do = mk(b, s, h, d), mk(b, s, h_kv, d), mk(b, s, h_kv, d), \
+        mk(b, s, h, d)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (tfa.flash_fwd_cuda.launches, tfa.flash_bwd_dq_cuda.launches,
+              tfa.flash_bwd_dkv_cuda.launches)
+    out = tfa.flash_attention(qr, kr, vr, causal=causal, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = (tfa.flash_fwd_cuda.launches, tfa.flash_bwd_dq_cuda.launches,
+             tfa.flash_bwd_dkv_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    ref, lse = tfa.flash_attention_reference(q, k, v, causal, window)
+    delta = (do.float() * out.detach().float()).sum(-1).transpose(
+        1, 2).contiguous()
+    dq = tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window)
+    dk, dv = tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                         window)
+    for got, want in ((out, ref), (qr.grad, dq), (kr.grad, dk),
+                      (vr.grad, dv)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+def test_transformer_grads_on_card_match_cpu():
+    """The same fp32 weights and batch through the flash transformer on
+    the card (the kernels) and on the CPU (the plain versions): every
+    parameter's gradient agrees."""
+    _need_card()
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import Transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(vocab_size=211, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=16, max_seq_len=96,
+                            dtype=torch.float32, attention_impl="flash")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 211, (3, 65))).long()
+    grads = []
+    for device in ("cpu", "cuda"):
+        model = Transformer(cfg, params={k: v.to(device)
+                                         for k, v in params.items()})
+        t = toks.to(device)
+        training.softmax_cross_entropy(model(t[:, :-1]), t[:, 1:]).backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    for name, want in grads[0].items():
+        err = float((grads[1][name] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), name

@@ -45,6 +45,8 @@ def test_no_jax_imports_anywhere_in_the_port():
 
 
 def test_port_imports_and_serves_with_jax_blocked():
+    """Every module imports, the engine serves and a training step runs
+    with jax, flax, optax and horovod_tpu blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -54,6 +56,13 @@ def test_port_imports_and_serves_with_jax_blocked():
         "from horovod_tpu_torch.serving import ServingEngine, ServeConfig\n"
         "from horovod_tpu_torch.ops import flash_attention, _build\n"
         "import horovod_tpu_torch.trace, horovod_tpu_torch.metrics\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch import training, optim, functions\n"
+        "from horovod_tpu_torch.common import basics, exceptions\n"
+        "from horovod_tpu_torch.ops import (collective_ops, fusion,\n"
+        "    reduce_ops)\n"
+        "from horovod_tpu_torch.models import Transformer, gpt_small\n"
+        "from horovod_tpu_torch.models import params_to_numpy_tree\n"
         "cfg = TransformerConfig(vocab_size=50, num_layers=1, num_heads=2,\n"
         "    head_dim=8, max_seq_len=32, dtype=torch.float32)\n"
         "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
@@ -61,6 +70,18 @@ def test_port_imports_and_serves_with_jax_blocked():
         "    decode_tiers=(1, 2)), device='cpu')\n"
         "rid = eng.submit(np.arange(1, 6), max_new_tokens=3)\n"
         "assert len(eng.run()[rid]) == 3\n"
+        "hvd.init(device='cpu')\n"
+        "tc = gpt_small(vocab_size=50, num_layers=1, max_seq_len=32,\n"
+        "    dtype=torch.float32, attention_impl='flash')\n"
+        "m = Transformer(tc, params=init_params(tc,\n"
+        "    torch.Generator().manual_seed(0), 'cpu'))\n"
+        "opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),\n"
+        "    lr=0.1))\n"
+        "toks = torch.randint(0, 50, (2, 9))\n"
+        "training.softmax_cross_entropy(m(toks[:, :-1]), toks[:, 1:])\\\n"
+        "    .backward()\n"
+        "opt.step()\n"
+        "hvd.shutdown()\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
         "    for m, v in sys.modules.items() if v is not None)\n"
@@ -98,6 +119,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    import horovod_tpu_torch as hvd
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hvd.init()
+    assert not hvd.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator().manual_seed(0),
+                    param_dtype=torch.float32)
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
