@@ -25,6 +25,17 @@ if any fails:
      main path's), llama3_8b's attention (32/8 heads, D=128, S=4096,
      the GQA group sum), bidirectional, a causal and a bidirectional
      window of 256, a ragged S=1000; bf16 and fp32;
+   - the fused BatchNorm kernels (stats, apply, backward reduce, dx):
+     all 16 distinct (M, C, ReLU, residual) shapes of ResNet-50's 53
+     norm sites at batch 128, 224x224 (the main path's) in bf16, three
+     of them in fp32, a ragged case (M=1000, C=96), the scalar path
+     (C % 8 != 0 in each dtype, and a base pointer off 16 bytes), and one
+     site through the sync-BN ``process_group`` seam over a world-1
+     NCCL group (bit-equal to the op without one); each kernel against
+     the plain version of its own step on every output (y, mean, var,
+     dβ, dγ, dx, dres), with its time, the plain version's, the
+     library's train-mode BN composite (forward, backward; timed only)
+     and the card's bound;
 4. serving: ``ServingEngine`` over llama3_8b at full width (32 layers,
    bf16, random weights from a seeded generator on the card) serves two
    waves of requests; every request must complete, the kernel must have
@@ -42,14 +53,28 @@ if any fails:
    device busy share and time by kernel class over 2 profiled steps;
 7. training_oracle: gpt_small width, 2 layers, fp32 — the gradient of
    every parameter through the kernels ("flash") against the plain dense
-   path ("dot") on the same weights and batch.
+   path ("dot") on the same weights and batch;
+8. resnet: ResNet-50 at full width and depth (bench.py's configuration:
+   1000 classes, bf16 over fp32 masters, space-to-depth stem), batch
+   128 of 224x224 seeded images, SGD(0.1, momentum 0.9), through
+   ``init()`` (world 1 over NCCL), ``replicate_state`` and
+   ``data_parallel_train_step``, 10 steps on one fixed batch: every loss
+   finite and the last below the first, exactly 53 launches of each
+   fused-norm kernel per step; images/s, MFU by bench.py's FLOP count,
+   peak memory, then the device busy share and time by kernel class
+   over 2 profiled steps;
+9. resnet_oracle: ResNet-50 width, stage depths [1, 1, 1, 1], batch 4
+   of 64x64, fp32 with TF32 off — every parameter gradient and running
+   statistic on the card (the kernels) against the CPU (plain versions).
 
-Each main path (serving, training) is driven with the kernels' launch
-counts set to 0 just before it and read just after.  The card's
+Each main path (serving, training, resnet) is driven with the kernels'
+launch counts set to 0 just before it and read just after.  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel source and C entry: ``launches``
 from the main paths' runs, the other numbers from the kernel phase at
-the main path's shape; null where ``--phases`` left that phase out);
+the main path's shape — for the fused-norm kernels, summed over the 53
+sites of one ResNet-50 step; null where ``--phases`` left that phase
+out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 ``--phases`` runs a subset (e.g. ``--phases kernels,training``); the
@@ -100,6 +125,47 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_SPIN = {}
+
+
+def device_ms(fn, reps=10, warmup=2):
+    """Device time per call (ms) of ``fn``, without the host's time
+    between its launches: a spin kernel (``torch.cuda._sleep``) holds
+    the card while the host enqueues ``reps`` calls behind it, and the
+    events around the calls then time them back to back.  The spin is
+    sized from a measured cycle rate and must outlast the enqueueing
+    (checked on the host's clock; lengthened and repeated if not)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if "cycles_per_ms" not in _SPIN:
+        torch.cuda._sleep(10_000_000)  # warm
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN["cycles_per_ms"] = 10_000_000 / start.elapsed_time(end)
+    spin_ms = 50.0
+    for _ in range(4):
+        torch.cuda._sleep(int(_SPIN["cycles_per_ms"] * spin_ms))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.5 * spin_ms:
+            return start.elapsed_time(end) / reps
+        spin_ms *= 4
+    raise RuntimeError(f"enqueueing {reps} calls took {host_ms:.1f} ms, "
+                       f"longer than the spin (device time not measured)")
 
 
 # -- phase 3: the kernel against its plain version ---------------------------
@@ -417,6 +483,255 @@ def phase_train_kernels():
     return recs
 
 
+# -- phase 3c: the fused BatchNorm kernels (B5-B8) ---------------------------
+
+EPS = 1e-5
+# kernel vs plain on the fused-norm outputs.  mean and var: the two sides
+# sum up to 1.6 M fp32 terms in different orders (the kernels in chains
+# of at most ~350: a thread's rows, a block's row threads, the partials'
+# slices; the plain version in torch's tree), and var = E[x²] − mean²
+# cancels, so |Δmean| is held to 1e-4·sqrt(E[x²]) and |Δvar| to
+# 2e-4·E[x²] per channel (fp32 rounding over a 350-term chain is
+# ≤ 350·2⁻²⁴ ≈ 2.1e-5 of the terms' mass).  dβ and dγ likewise to 1e-4
+# of their terms' mass Σ|dy′| and Σ|dy′·x̂|.  y and dx: per channel,
+# the largest error relative to that channel's largest |plain value|
+# ≤ 1e-2 in bf16 (one rounding step is ≤ 2⁻⁷ of a value) and 1e-4 in
+# fp32, and the absolute error ≤ TOL·max(1, largest |value|).  dres is
+# dy′ cast to x's dtype on both sides: exactly equal.
+BN_STAT_TOL = {"mean": 1e-4, "var": 2e-4, "dbeta": 1e-4, "dgamma": 1e-4}
+BN_COL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+BN_KERNELS = ("stats", "apply", "bwd_reduce", "dx")
+
+
+def resnet50_sites():
+    """{(M, C, relu, residual): count} of ResNet-50's 53 norm sites at
+    batch 128, 224x224, s2d stem (from the model's own ``bn_sites``)."""
+    import collections
+
+    import torch
+    from horovod_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     stem="space_to_depth", device="cpu")
+    sites = model.bn_sites(128, 224, 224)
+    assert len(sites) == 53, len(sites)
+    return collections.Counter(sites)
+
+
+def _bn_bounds(m, c, el, relu, res):
+    """Least time on the card for each kernel: max(bytes / HBM rate,
+    fp32 operations / 67 TFLOP/s).  Bytes: each (M, C) input read once
+    and each output written once, plus the per-channel vectors (γ, β,
+    the statistics and sums, 4 bytes each); y is read by the backward
+    only under a ReLU.  Operations per element: stats 3 (add, multiply,
+    add), apply 2 (+1 residual, +1 ReLU), backward reduce 6 (+1 ReLU
+    mask), dx 8 (+1 mask)."""
+    mc, vec = m * c, c * 4
+    work = {
+        "stats": (mc * el + 2 * vec + 5 * vec, 3 * mc),
+        "apply": (mc * el * (2 + res) + 2 * vec, mc * (2 + res + relu)),
+        "bwd_reduce": (mc * el * (2 + relu) + 2 * vec + 2 * vec,
+                       mc * (6 + relu)),
+        "dx": (mc * el * (2 + relu + 1 + res) + 5 * vec, mc * (8 + relu)),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
+        out[name] = (t_b * 1e3, t_o * 1e3)
+    return out
+
+
+def _bound(t_bytes_ms, t_ops_ms):
+    return (max(t_bytes_ms, t_ops_ms),
+            "bytes" if t_bytes_ms >= t_ops_ms else "operations")
+
+
+def _col_err(out, ref):
+    """(largest |diff|, largest per-channel |diff| / channel's max |ref|
+    (floored at 1e-2 of the tensor's), max(1, largest |ref|))."""
+    diff = (out.float() - ref.float()).abs()
+    refa = ref.float().abs()
+    top = float(refa.max())
+    cols = refa.amax(dim=0).clamp_min(max(1e-2 * top, 1e-30))
+    return (float(diff.max()), float((diff.amax(dim=0) / cols).max()),
+            max(1.0, top))
+
+
+def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
+                misalign=False):
+    """One fused-norm case: each kernel against the plain version of its
+    own step on the same inputs (the backward on the kernel forward's
+    y, mean and rstd, so a ReLU mask is the same on both sides), the
+    kernel, plain and library times, and the bounds.  ``misalign``: x
+    starts one element past a 16-byte boundary (the scalar path)."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    offs = 3 * torch.randn((c,), generator=g, device="cuda")
+    x = (2 * torch.randn((m, c), generator=g, device="cuda") + offs).to(dtype)
+    if misalign:
+        buf = torch.empty((m * c + 1,), dtype=dtype, device="cuda")
+        buf[1:].view(m, c).copy_(x)
+        x = buf[1:].view(m, c)
+        assert x.data_ptr() % 16
+    gamma = torch.rand((c,), generator=g, device="cuda") + 0.5
+    beta = torch.randn((c,), generator=g, device="cuda")
+    r = (torch.randn((m, c), generator=g, device="cuda").to(dtype)
+         if res else None)
+    dy = torch.randn((m, c), generator=g, device="cuda").to(dtype)
+    k = {
+        "stats": lambda: fn.bn_stats_cuda(x, gamma, beta, EPS),
+        "apply": lambda: fn.bn_apply_cuda(x, stats, r, relu),
+        "bwd_reduce": lambda: fn.bn_bwd_reduce_cuda(x, dy, y, stats[0],
+                                                    stats[2], relu),
+        "dx": lambda: fn.bn_dx_cuda(x, dy, y, gamma, stats[0], stats[2],
+                                    sums, m, relu, res),
+    }
+    stats = k["stats"]()
+    y = k["apply"]()
+    sums = k["bwd_reduce"]()
+    dx, dres = k["dx"]()
+    torch.cuda.synchronize()
+    plain = {
+        "stats": lambda: fn.bn_stats_reference(x, EPS),
+        "apply": lambda: fn.bn_apply_reference(x, gamma, beta, p_mean,
+                                               p_rstd, r, relu),
+        "bwd_reduce": lambda: fn.bn_bwd_reduce_reference(
+            x, dy, y, stats[0], stats[2], relu),
+        "dx": lambda: fn.bn_dx_reference(x, dy, y, gamma, stats[0],
+                                         stats[2], sums[0], sums[1], m,
+                                         relu, res),
+    }
+    p_mean, p_var, p_rstd = plain["stats"]()
+    xf = x.float()
+    ex2 = (xf * xf).sum(0) / m
+    # (largest |diff|, largest |diff| relative to its scale) per output
+    rel = lambda d, scale: (float(d.max()),  # noqa: E731
+                            float((d / scale.clamp_min(1e-30)).max()))
+    errs = {"mean": rel((stats[0] - p_mean).abs(), ex2.sqrt()),
+            "var": rel((stats[1] - p_var).abs(), ex2)}
+    y_ref = plain["apply"]()
+    errs["y"] = _col_err(y, y_ref)
+    del y_ref, xf
+    p_db, p_dg = plain["bwd_reduce"]()
+    dyf = fn._masked_dy(dy, y, relu)
+    mass_b = dyf.abs().sum(0)
+    mass_g = (dyf * ((x.float() - stats[0]) * stats[2])).abs().sum(0)
+    errs["dbeta"] = rel((sums[0] - p_db).abs(), mass_b)
+    errs["dgamma"] = rel((sums[1] - p_dg).abs(), mass_g)
+    del dyf, mass_b, mass_g
+    dx_ref, dres_ref = plain["dx"]()
+    errs["dx"] = _col_err(dx, dx_ref)
+    dres_equal = (dres is None and dres_ref is None) or bool(
+        torch.equal(dres, dres_ref))
+    del dx_ref, dres_ref
+    ok = dres_equal and all(
+        math.isfinite(errs[key][1]) and errs[key][1] <= tol
+        for key, tol in BN_STAT_TOL.items()) and all(
+        math.isfinite(a) and a <= TOL[dtype_name] * top
+        and col <= BN_COL_TOL[dtype_name]
+        for a, col, top in (errs["y"], errs["dx"]))
+    rec = dict(case=name, m=m, c=c, relu=relu, residual=res,
+               dtype=dtype_name, sites=count, ok=ok, dres_equal=dres_equal,
+               tol=dict(BN_STAT_TOL, col=BN_COL_TOL[dtype_name]),
+               errors={key: (dict(abs=v[0], col=v[1],
+                                  abs_bound=TOL[dtype_name] * v[2])
+                             if len(v) == 3 else dict(abs=v[0], rel=v[1]))
+                       for key, v in errs.items()})
+    # the library's train-mode BN (cuDNN / native), timed only (never
+    # called by the port): F.batch_norm, composed with the residual add
+    # and ReLU where the site has them, forward, then its backward
+    xl = x.detach().clone().requires_grad_()
+    gl = gamma.detach().clone().requires_grad_()
+    bl = beta.detach().clone().requires_grad_()
+
+    def lib_fwd():
+        out = F.batch_norm(xl, None, None, gl, bl, True, 0.1, EPS)
+        if res:
+            out = out + r
+        return F.relu(out) if relu else out
+
+    o_lib = lib_fwd()
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        o_lib, (xl, gl, bl), dy, retain_graph=True)
+    # device time of each kernel wrapper, plain version and library call;
+    # the wrapper's call time on the host's clock beside it
+    times = [device_ms(f) for f in [k[key] for key in BN_KERNELS]
+             + [plain[key] for key in BN_KERNELS] + [lib_fwd, lib_bwd]]
+    del o_lib
+    bounds = _bn_bounds(m, c, x.element_size(), int(relu), int(res))
+    for i, key in enumerate(BN_KERNELS):
+        bnd, by = _bound(*bounds[key])
+        rec[key] = dict(kernel_ms=times[i], call_ms=cuda_ms(k[key]),
+                        plain_ms=times[4 + i], bound_ms=bnd, bound_by=by,
+                        bound_bytes_ms=bounds[key][0],
+                        bound_ops_ms=bounds[key][1])
+    rec["library_fwd_ms"], rec["library_bwd_ms"] = times[8:]
+    rec["library_call"] = ("relu(" if relu else "") + "batch_norm(x)" + (
+        " + res" if res else "") + (")" if relu else "")
+    if group is not None:
+        # the sync-BN seam over a world-1 group through the op (autograd):
+        # bit-equal to the op without a group
+        outs = []
+        for pg in (None, group):
+            xg = x.detach().clone().requires_grad_()
+            gg = gamma.detach().clone().requires_grad_()
+            bg = beta.detach().clone().requires_grad_()
+            yo, mo, vo = fn.fused_batch_norm_act(xg, gg, bg, r, relu=relu,
+                                                 eps=EPS, process_group=pg)
+            yo.backward(dy)
+            outs.append((yo, mo, vo, xg.grad, gg.grad, bg.grad))
+        rec["group_bit_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(*outs))
+        rec["ok"] = rec["ok"] and rec["group_bit_equal"]
+    log("  " + json.dumps(rec))
+    return rec
+
+
+def phase_bn_kernels():
+    """Every ResNet-50 site shape (batch 128, 224x224) in bf16, three of
+    them in fp32, a ragged case, a C % 8 != 0 case in each dtype, and
+    one site through the process_group path over a world-1 NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    sites = resnet50_sites()
+    cases = []
+    for (m, c, relu, res), count in sorted(sites.items(), key=lambda kv:
+                                           (-kv[0][0], kv[0][1])):
+        tag = f"resnet50_m{m}_c{c}" + ("_relu" if relu else "") + (
+            "_res" if res else "")
+        cases.append((tag, m, c, relu, res, "bfloat16", count))
+    for m, c, relu, res in ((1_605_632, 64, True, False),
+                            (100_352, 512, True, True),
+                            (6_272, 2048, False, False)):
+        cases.append((f"resnet50_m{m}_c{c}_fp32", m, c, relu, res,
+                      "float32", 0))
+    cases += [("ragged_m1000_c96", 1000, 96, True, True, "bfloat16", 0),
+              ("scalar_path_c100", 4099, 100, True, True, "bfloat16", 0),
+              ("scalar_path_c30", 4099, 30, True, False, "float32", 0)]
+    recs = [run_bn_case(*case) for case in cases]
+    recs.append(run_bn_case("scalar_path_misaligned_c64", 4096, 64, True,
+                            False, "bfloat16", 0, misalign=True))
+    torch.cuda.empty_cache()
+    hvd.init()
+    recs.append(run_bn_case("process_group_world1_m100352_c512", 100_352,
+                            512, True, True, "bfloat16", 0,
+                            group=dist.group.WORLD))
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    bad = [r["case"] for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"fused-norm kernels disagree with their plain versions: {bad}")
+    return recs
+
+
 # -- phase 4: serving at full width ------------------------------------------
 
 
@@ -524,7 +839,7 @@ def _kernel_class(name):
     return "other"
 
 
-def _device_breakdown(prof, wall, steps):
+def _device_breakdown(prof, wall, steps, classify=None):
     """Device time by kernel class and by kernel name, the device busy
     share (union of kernel intervals over the wall) and kernels per step
     from a torch.profiler capture."""
@@ -534,7 +849,7 @@ def _device_breakdown(prof, wall, steps):
     by_class, by_name, spans = {}, {}, []
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        cls = _kernel_class(e.name)
+        cls = (classify or _kernel_class)(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
         spans.append((e.time_range.start, e.time_range.end))
@@ -807,7 +1122,308 @@ def phase_training_oracle():
     return worst
 
 
-PHASES = ("kernels", "serving", "oracle", "training", "training_oracle")
+# -- phase 8: ResNet-50 data-parallel training at full width ------------------
+
+RESNET_B, RESNET_HW, RESNET_STEPS = 128, 224, 10
+# bench.py:56: ResNet-50 forward ~4.09 GMACs at 224 = 8.18 GFLOP, a
+# training step ~3x the forward
+RESNET_TRAIN_FLOPS_PER_IMG = 3 * 2 * 4.09e9
+RESNET_SITES = 53
+
+
+def _bn_wrappers():
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    return (fn.bn_stats_cuda, fn.bn_apply_cuda, fn.bn_bwd_reduce_cuda,
+            fn.bn_dx_cuda)
+
+
+def _bn_counts():
+    return tuple(w.launches for w in _bn_wrappers())
+
+
+def _resnet_kernel_class(name):
+    n = name.lower()
+    if any(s in n for s in ("bn_stats_partial", "bn_reduce_partials",
+                            "bn_finalize", "bn_apply_kernel",
+                            "bn_bwd_partial", "bn_dx_kernel")):
+        return "bn_kernels"
+    if "nccl" in n:
+        return "nccl"
+    if "multi_tensor" in n or "sgd" in n:
+        return "optimizer_sgd"
+    if any(s in n for s in ("conv", "fprop", "dgrad", "wgrad", "xmma",
+                            "implicit", "cudnn", "nhwc", "winograd",
+                            "im2col")):
+        return "convolution"
+    if any(s in n for s in ("gemm", "cutlass", "nvjet", "sm90")):
+        return "gemm"
+    return "other"
+
+
+def phase_resnet():
+    """ResNet-50 at full width and depth (``bench.py``'s configuration:
+    1000 classes, bf16 compute over fp32 masters, the space-to-depth
+    stem), batch 128 of 224x224x3 seeded images, SGD(0.1, momentum 0.9),
+    through init() (world 1 over NCCL) -> replicate_state ->
+    data_parallel_train_step, RESNET_STEPS steps on one fixed batch.
+    cudnn.benchmark on, as the reference's pytorch_synthetic_benchmark
+    sets it."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import ResNet50
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    hvd.init()
+    assert hvd.size() == 1 and hvd.device().type == "cuda"
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     stem="space_to_depth", device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    state = training.replicate_state(training.create_train_state(model, opt))
+    step = training.data_parallel_train_step(model, opt)
+    rs = np.random.RandomState(SEED)
+    images = torch.as_tensor(
+        rs.randn(RESNET_B, RESNET_HW, RESNET_HW, 3).astype(np.float32),
+        device="cuda")
+    labels = torch.as_tensor(rs.randint(0, 1000, size=(RESNET_B,)),
+                             dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in _bn_wrappers():
+        w.launches = 0
+    losses, per_step, times = [], [], []
+    for _ in range(RESNET_STEPS):
+        before = _bn_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        per_step.append(tuple(a - b for a, b in zip(_bn_counts(), before)))
+    launches = _bn_counts()
+    losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), f"loss not finite: {losses}"
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    want = (RESNET_SITES,) * 4
+    assert all(c == want for c in per_step), (
+        f"fused-norm launches per step {per_step} != {want} (stats, apply, "
+        f"bwd_reduce, dx)")
+    assert state.step == RESNET_STEPS
+    steady = times[2:]  # the first steps pay cuDNN's algorithm search
+    step_s = sum(steady) / len(steady)
+    mfu = RESNET_TRAIN_FLOPS_PER_IMG * RESNET_B / step_s \
+        / PEAK_FLOPS["bfloat16"]
+    rec = dict(params=n_params, batch=RESNET_B, image=RESNET_HW,
+               steps=RESNET_STEPS, losses=losses, step_s=times,
+               step_s_mean_steady=step_s, images_per_s=RESNET_B / step_s,
+               mfu=mfu, launches=dict(zip(("bn_stats", "bn_apply",
+                                           "bn_bwd_reduce", "bn_dx"),
+                                          launches)),
+               launches_per_step=list(per_step[0]), peak_mem_gb=peak_gb)
+    log("  resnet: " + json.dumps(rec))
+    rec["profile"] = profile_resnet(step, state, images, labels)
+    hvd.shutdown()
+    torch.backends.cudnn.benchmark = benchmark
+    del state, step, model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_resnet(step, state, images, labels):
+    """Device busy share and device time by kernel class (convolutions,
+    the four BN kernels, other elementwise, SGD) over PROFILE_STEPS more
+    steps under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, loss = step(state, images, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec = _device_breakdown(prof, wall, PROFILE_STEPS,
+                            classify=_resnet_kernel_class)
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
+                   for a in prof.key_averages()
+                   if a.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])[:12]
+    rec["top_host_self_ms_calls"] = {k: [round(ms, 3), n]
+                                     for k, ms, n in host}
+    log("  resnet profile: " + json.dumps(rec))
+    return rec
+
+
+def phase_resnet_oracle():
+    """ResNet-50 at full width with the stage depths cut to [1, 1, 1, 1]
+    (17 norm sites), batch 4 of 64x64, fp32, TF32 off for cuDNN and
+    matmuls, deterministic cuDNN algorithms: every parameter's gradient
+    and every updated running statistic of one training forward and
+    backward, three ways on the same weights — on the card through the
+    kernels, on the card through the plain versions (the op's
+    ``impl="reference"``; the same convolutions), and on the CPU (the
+    plain versions).  Each norm's scale, bias and running statistics are
+    drawn at random first (a block's last norm starts at scale 0, which
+    would zero its branch's gradients).
+
+    The gradients are compared by their relative L2 error per
+    parameter, not entry by entry: a ReLU or max-pool decision on a
+    value within rounding of its threshold goes one way on one side and
+    the other way on the other, and moves that one entry's gradient by
+    O(1) — on the CPU alone, a 1e-6 relative perturbation of the input
+    moved one gradient by 1.8 % of its largest entry and 0.6 % in L2.
+    A wrong kernel or a wrong layout moves every gradient by O(1)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.models import resnet as rn
+    from horovod_tpu_torch.models.resnet import BatchNorm
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    kw = dict(stage_sizes=[1, 1, 1, 1], num_classes=1000,
+              dtype=torch.float32, stem="space_to_depth")
+    cpu = ResNet50(device="cpu", generator=torch.Generator().manual_seed(
+        SEED + 3), **kw)
+    g = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, BatchNorm):
+                c = m.scale.numel()
+                m.scale.copy_(torch.rand(c, generator=g) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.var.copy_(1 + 0.1 * torch.rand(c, generator=g))
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    rs = np.random.RandomState(SEED + 3)
+    x = torch.from_numpy(rs.randn(4, 64, 64, 3).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 1000, size=(4,))).long()
+
+    def train_once(model, dev):
+        loss = training.softmax_cross_entropy(model(x.to(dev)),
+                                              labels.to(dev))
+        loss.backward()
+        return (float(loss.detach()),
+                {n: p.grad.detach().cpu() for n, p in
+                 model.named_parameters()},
+                {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+    runs = {"cpu": train_once(cpu, "cpu")}
+    card = ResNet50(device="cuda", **kw)
+    card.load_state_dict(init)
+    before = _bn_counts()
+    runs["card"] = train_once(card, "cuda")
+    sites = len(cpu.bn_sites(4, 64, 64))
+    launched = tuple(a - b for a, b in zip(_bn_counts(), before))
+    assert launched == (sites,) * 4, (launched, sites)
+    plain = ResNet50(device="cuda", **kw)
+    plain.load_state_dict(init)
+    op = rn.fused_batch_norm_act
+    rn.fused_batch_norm_act = functools.partial(op, impl="reference")
+    try:
+        runs["card_plain"] = train_once(plain, "cuda")
+    finally:
+        rn.fused_batch_norm_act = op
+    torch.backends.cudnn.deterministic = deterministic
+    assert _bn_counts() == tuple(a + sites for a in before)
+
+    def compare(a, b):
+        (la, ga, sa), (lb, gb, sb) = runs[a], runs[b]
+        l2 = {n: float((ga[n] - t).norm() / t.norm().clamp_min(1e-30))
+              for n, t in gb.items()}
+        return dict(
+            loss_rel=abs(la - lb) / abs(lb),
+            grad_l2=max(l2.values()), worst=max(l2, key=l2.get),
+            grad_max=max(float((ga[n] - t).abs().max()
+                               / t.abs().max().clamp_min(1e-30))
+                         for n, t in gb.items()),
+            stat=max(float((sa[n] - t).abs().max()
+                           / t.abs().max().clamp_min(1e-30))
+                     for n, t in sb.items()))
+
+    # the kernels against the plain versions on the card (the same
+    # convolutions; the BN arithmetic rounds differently): gradients
+    # within 1e-2 in L2 (a single flipped ReLU decision moves one by
+    # ~0.6 %), running statistics within 1e-5 of each buffer's largest
+    # value; the card against the CPU (cuDNN's convolutions against the
+    # CPU's as well, so more decisions flip): gradients within 1e-1 in
+    # L2, statistics within 1e-4, the loss within 1e-5
+    tol = {"kernels_vs_card_plain": dict(grad_l2=1e-2, stat=1e-5),
+           "card_vs_cpu": dict(grad_l2=1e-1, stat=1e-4, loss_rel=1e-5)}
+    rec = dict(norm_sites=sites, parameters=len(runs["cpu"][1]),
+               losses={k: v[0] for k, v in runs.items()}, tf32=False,
+               tolerances=tol,
+               kernels_vs_card_plain=compare("card", "card_plain"),
+               card_vs_cpu=compare("card", "cpu"))
+    log("  resnet oracle: " + json.dumps(rec))
+    bad = [f"{pair}.{key}" for pair, bounds in tol.items()
+           for key, bound in bounds.items()
+           if not rec[pair][key] <= bound]
+    assert not bad, f"gradients or running statistics disagree: {bad}"
+    del card, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+PHASES = ("kernels", "serving", "oracle", "training", "training_oracle",
+          "resnet", "resnet_oracle")
+
+
+BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
+              ("bn_apply", "apply", 89, ("y",)),
+              ("bn_bwd_reduce", "bwd_reduce", 99, ("dbeta", "dgamma")),
+              ("bn_dx", "dx", 116, ("dx",)))
+
+
+def bn_entries(bn_kern, resnet):
+    """The fused-norm kernels' entries: ``launches`` from the resnet
+    run; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed
+    over ResNet-50's 53 sites at batch 128 (each site shape's bf16 case
+    times its count: one training step's worth), ``library_ms`` the
+    forward (stats, apply) or backward (bwd_reduce, dx) of the
+    library's BN composite; ``max_abs_err`` over every fused-norm case."""
+    entries = []
+    for name, key, line, outs in BN_ENTRIES:
+        e = dict(name=name, route="cuda",
+                 source="horovod_tpu_torch/csrc/fused_norm.cu",
+                 replaces=f"horovod_tpu/ops/fused_norm.py:{line}",
+                 launches=resnet["launches"][name] if resnet else None,
+                 max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+                 bound_by=None, library_ms=None)
+        if bn_kern:
+            main = [r for r in bn_kern if r["sites"]]
+            total = lambda f: sum(r["sites"] * f(r) for r in main)  # noqa
+            lib = "library_fwd_ms" if key in ("stats", "apply") else \
+                "library_bwd_ms"
+            by = _bound(total(lambda r: r[key]["bound_bytes_ms"]),
+                        total(lambda r: r[key]["bound_ops_ms"]))[1]
+            bnd = total(lambda r: r[key]["bound_ms"])
+            e.update(max_abs_err=max(r["errors"][o]["abs"] for r in bn_kern
+                                     for o in outs),
+                     ms=total(lambda r: r[key]["kernel_ms"]),
+                     plain_ms=total(lambda r: r[key]["plain_ms"]),
+                     bound_ms=bnd, bound_by=by,
+                     library_ms=(None if any(r[lib] is None for r in main)
+                                 else total(lambda r: r[lib])))
+        entries.append(e)
+    return entries
 
 
 def kernel_entries(kern, train_kern, serving, train):
@@ -886,11 +1502,12 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    kern = train_kern = serving = train = None
+    kern = train_kern = bn_kern = serving = train = resnet = None
     if "kernels" in phases:
         log("phase kernels:")
         kern = phase_kernels()
         train_kern = phase_train_kernels()
+        bn_kern = phase_bn_kernels()
     if "serving" in phases:
         log("phase serving:")
         serving = phase_serving()
@@ -903,7 +1520,14 @@ def main(argv=None) -> int:
     if "training_oracle" in phases:
         log("phase training_oracle:")
         phase_training_oracle()
-    entries = kernel_entries(kern, train_kern, serving, train)
+    if "resnet" in phases:
+        log("phase resnet:")
+        resnet = phase_resnet()
+    if "resnet_oracle" in phases:
+        log("phase resnet_oracle:")
+        phase_resnet_oracle()
+    entries = (kernel_entries(kern, train_kern, serving, train)
+               + bn_entries(bn_kern, resnet))
     log(card)
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,9 @@ batching, chunked prefill, prefix cache) and data-parallel training
 (``init`` → ``broadcast_parameters`` → ``models.transformer`` with
 ``attention_impl="flash"`` → the flash backward kernels → gradient
 allreduce → optimizer update; ``training``, ``optim``), one process per
-GPU as in the original Horovod.  Entry points run on the card unless
+GPU as in the original Horovod, and the ResNet workload
+(``models.resnet``, every BatchNorm through the fused
+BN(+residual)+ReLU kernels of ``ops.fused_norm``; ``SyncBatchNorm``).  Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.
 """
@@ -71,12 +73,14 @@ from .ops.collective_ops import (
     synchronize,
 )
 from .ops.flash_attention import flash_attention
+from .ops.fused_norm import fused_batch_norm_act
 from .ops.reduce_ops import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 from .optim import (
     DistributedOptimizer,
     allreduce_gradients,
     with_gradient_accumulation,
 )
+from .sync_batch_norm import SyncBatchNorm
 from . import trace
 
 __version__ = "0.2.0"

@@ -9,12 +9,15 @@ fp32 and matrices either cast to ``cfg.dtype`` (the serving copy: what
 flax does before each product) or kept fp32 (``param_dtype=
 torch.float32``: the training masters, as flax keeps them).
 :func:`params_to_numpy_tree` goes back, so trained weights can be laid
-beside the JAX ones.  This module never imports JAX.
+beside the JAX ones.  :func:`resnet_params_from_flax` and
+:func:`resnet_params_to_flax` do the same for the ResNet (and the small
+models): the flax names, conv kernels HWIO <-> OIHW, ``batch_stats`` <->
+the norms' running buffers.  This module never imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -65,11 +68,74 @@ def params_to_numpy_tree(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The flax-shaped nested dict of fp32 numpy arrays for a port state
     dict (``model.state_dict()``): the inverse of
     :func:`params_from_flax`'s renaming."""
+    return _unflatten({key: t.detach().to("cpu", torch.float32).numpy()
+                       for key, t in state_dict.items()})
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
     tree: dict = {}
-    for key, t in state_dict.items():
+    for key, arr in flat.items():
         *path, leaf = key.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = t.detach().to("cpu", torch.float32).numpy()
+        node[leaf] = arr
     return tree
+
+
+def _conv_kernel(key: str, ndim: int) -> bool:
+    return ndim == 4 and key.endswith(".kernel")
+
+
+def resnet_params_from_flax(params_np: Mapping, batch_stats_np: Mapping,
+                            model: torch.nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict from a flax ``ResNet``'s ``params`` and
+    ``batch_stats`` trees of numpy arrays (the same names: ``conv_init``,
+    ``bn_init``, ``BottleneckBlock_i/Conv_k``, ``BatchNorm_k``,
+    ``conv_proj``, ``norm_proj``, ``head``; the batch statistics land in
+    each norm's ``mean``/``var`` buffers).  Conv kernels go from flax's
+    HWIO to the port's OIHW.  Every tensor comes fp32 on the model's
+    device; load it with ``model.load_state_dict``.  A name or shape
+    that does not match the model raises ``ValueError``.  The small
+    models (:mod:`.simple`, no ``batch_stats``) convert the same way."""
+    flat = _flatten(params_np)
+    stats = _flatten(batch_stats_np)
+    both = sorted(set(flat) & set(stats))
+    if both:
+        raise ValueError(f"leaves in both params and batch_stats: {both[:5]}")
+    flat.update(stats)
+    want = model.state_dict()
+    extra = sorted(set(flat) - set(want))
+    missing = sorted(set(want) - set(flat))
+    if extra or missing:
+        raise ValueError(f"flax tree does not match the model: missing "
+                         f"{missing[:5]}, unexpected {extra[:5]}")
+    out: Dict[str, torch.Tensor] = {}
+    for key, target in want.items():
+        arr = np.array(flat[key], dtype=np.float32)  # own copy
+        if _conv_kernel(key, arr.ndim):
+            arr = arr.transpose(3, 2, 0, 1)
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: flax shape {flat[key].shape} gives "
+                             f"{arr.shape}, the model wants "
+                             f"{tuple(target.shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=target.device, dtype=target.dtype)
+    return out
+
+
+def resnet_params_to_flax(model: torch.nn.Module) -> Tuple[dict, dict]:
+    """``(params, batch_stats)`` flax trees of fp32 numpy arrays for
+    ``model``: the inverse of :func:`resnet_params_from_flax` (conv
+    kernels back to HWIO; the norms' ``mean``/``var`` buffers into
+    ``batch_stats``)."""
+    buffers = {name for name, _ in model.named_buffers()}
+    params: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if _conv_kernel(key, arr.ndim):
+            arr = arr.transpose(2, 3, 1, 0)
+        (stats if key in buffers else params)[key] = arr
+    return _unflatten(params), _unflatten(stats)

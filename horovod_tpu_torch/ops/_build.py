@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: the kernel sources this package builds (one library each); each may
 #: include the shared headers (``csrc/*.cuh``)
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_norm.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -108,3 +108,27 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>`` (building all
     sources first if needed)."""
     return build_all()[name]
+
+
+def bound(name: str, entries: Dict[str, list]) -> ctypes.CDLL:
+    """:func:`library` with its C entries' ctypes signatures set
+    (``entries``: entry name -> argtypes; each entry returns a CUDA error
+    code) and ``hvd_cuda_error_string``'s."""
+    lib = library(name)
+    if lib.hvd_cuda_error_string.restype is not ctypes.c_char_p:
+        for entry, argtypes in entries.items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(lib: ctypes.CDLL, entry: str, args) -> None:
+    """Call a kernel's C entry; raise on a launch error (the entry
+    returns ``cudaGetLastError()``)."""
+    err = getattr(lib, entry)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry} kernel launch failed: "
+            f"{lib.hvd_cuda_error_string(err).decode()} (code {err})")

@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from . import _build
+
 _NEG_INF = -1e30
 
 
@@ -256,31 +258,6 @@ def _check_stats(b, h, s, device, **stats):
                              f"tensor on {device}")
 
 
-def _launch(lib, fn_name, args):
-    """Call a kernel's C entry with the current stream; raise on a launch
-    error (the C entry returns ``cudaGetLastError()``)."""
-    err = getattr(lib, fn_name)(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"{fn_name} kernel launch failed: "
-            f"{lib.hvd_cuda_error_string(err).decode()} (code {err})")
-
-
-def _lib(source, entries):
-    """The loaded library of ``csrc/<source>`` with its entries' ctypes
-    signatures set (``entries``: name -> argtypes)."""
-    from . import _build
-
-    lib = _build.library(source)
-    if lib.hvd_cuda_error_string.restype is not ctypes.c_char_p:
-        for name, argtypes in entries.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _FWD_ARGS = {"hvd_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 12
@@ -317,9 +294,9 @@ def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, c), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _lib("flash_fwd.cu", _FWD_ARGS)
+    lib = _build.bound("flash_fwd.cu", _FWD_ARGS)
     with torch.cuda.device(q.device):
-        _launch(lib, "hvd_flash_fwd", (
+        _build.launch(lib, "hvd_flash_fwd", (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None, offs.data_ptr(),
             b, c, h, k.shape[2], k.shape[1], d,
@@ -344,10 +321,10 @@ def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
                          f"q {tuple(q.shape)} {q.dtype}")
     _check_stats(b, h, s, q.device, lse=lse, delta=delta)
     strides = [x for t in (q, k, v, do) + outs for x in t.stride()[:3]]
-    lib = _lib("flash_bwd.cu", _BWD_ARGS)
+    lib = _build.bound("flash_bwd.cu", _BWD_ARGS)
     arr = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
-        _launch(lib, entry, (
+        _build.launch(lib, entry, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             b, s, h, k.shape[2], d, ctypes.addressof(arr),

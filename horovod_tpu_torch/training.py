@@ -23,6 +23,7 @@ import torch
 
 from . import trace
 from .functions import broadcast_optimizer_state, broadcast_parameters
+from .models.resnet import running_stats
 from .ops import collective_ops
 from .ops.reduce_ops import Average, ReduceOp
 from .optim import reduce_param_grads
@@ -71,7 +72,11 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
     optimizer (wrapping it in ``DistributedOptimizer`` as well would
     reduce twice).  ``loss`` is the rank-averaged loss, a 0-d tensor on
     the device (no host sync).  ``state`` must carry this ``model`` and
-    ``optimizer`` (:func:`create_train_state`)."""
+    ``optimizer`` (:func:`create_train_state`).  A model with BatchNorm
+    running statistics has them averaged across ranks after the update
+    (replicas see different batches), in one grouped allreduce, as the
+    JAX step averages its ``batch_stats``."""
+    stats = running_stats(model)
 
     def step(state: TrainState, inputs, labels
              ) -> Tuple[TrainState, torch.Tensor]:
@@ -83,6 +88,11 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
         loss.backward()
         reduce_param_grads(list(model.parameters()), op)
         optimizer.step()
+        if stats:
+            with torch.no_grad():
+                for t, avg in zip(stats, collective_ops.grouped_allreduce(
+                        stats, op=Average)):
+                    t.copy_(avg)
         loss = collective_ops.allreduce(loss.detach(), op=Average)
         return dataclasses.replace(state, step=state.step + 1), loss
 

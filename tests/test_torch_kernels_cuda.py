@@ -156,3 +156,102 @@ def test_transformer_grads_on_card_match_cpu():
     for name, want in grads[0].items():
         err = float((grads[1][name] - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,c,relu,res", [(4096, 64, True, False),
+                                          (1000, 96, True, True),
+                                          (777, 30, False, True),
+                                          (3000, 2048, False, False),
+                                          (16, 2048, True, True),
+                                          (64, 512, True, False),
+                                          (3, 8, True, True)])
+def test_fused_norm_matches_plain_version(dtype, tol, m, c, relu, res):
+    """fused_batch_norm_act on the card (the four kernels, one launch
+    each) against the plain versions on the same card: y, the batch
+    statistics and the gradients of x, γ, β and the residual (C = 30
+    takes the scalar path; M = 16 and 64 are the small ResNet-50 oracle's
+    last-stage sites)."""
+    _need_card()
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    g = torch.Generator("cuda").manual_seed(m + c)
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device="cuda")
+    x = (2 * mk(m, c) + mk(c)).to(dtype)
+    gamma, beta = mk(c).abs() + 0.5, mk(c)
+    r = mk(m, c).to(dtype) if res else None
+    dy = mk(m, c).to(dtype)
+    wrappers = (fn.bn_stats_cuda, fn.bn_apply_cuda, fn.bn_bwd_reduce_cuda,
+                fn.bn_dx_cuda)
+    outs = []
+    for impl in (None, "reference"):
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)
+                  + ((r,) if res else ())]
+        before = [w.launches for w in wrappers]
+        y, mean, var = fn.fused_batch_norm_act(
+            *leaves[:3], leaves[3] if res else None, relu=relu, impl=impl)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        assert launched == ([1, 1, 1, 1] if impl is None else [0] * 4)
+        outs.append([y, mean, var] + [t.grad for t in leaves])
+    for got, want in zip(*outs):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+def test_fused_norm_raises_on_what_the_kernels_do_not_take():
+    """A CUDA tensor the kernels cannot take raises; nothing falls back."""
+    _need_card()
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    g, b = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
+    x = torch.randn(4, 8, 3, 3, device="cuda").permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn.fused_batch_norm_act(x, g, b)
+    with pytest.raises(TypeError, match="not supported"):
+        fn.fused_batch_norm_act(torch.randn(4, 8, device="cuda").half(), g, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn.bn_apply_cuda(torch.randn(4, 8), torch.zeros(5, 8))
+
+
+def test_resnet_grads_and_running_stats_on_card_match_cpu():
+    """ResNetTiny in fp32 (TF32 off) on the card (the fused kernels) and
+    on the CPU (the plain versions): logits and the updated running
+    statistics agree closely, every parameter gradient within 1e-1 in
+    relative L2 (a ReLU or max-pool decision on a value within rounding
+    of its threshold flips between the two sides and moves one entry of
+    a gradient by O(1); a wrong kernel moves all of them)."""
+    _need_card()
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import ResNetTiny
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = ResNetTiny(dtype=torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    card = ResNetTiny(dtype=torch.float32, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, 32, 32, 3).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 10, (4,))).long()
+    logits = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        out = model(x.to(dev))
+        training.softmax_cross_entropy(out, labels.to(dev)).backward()
+        logits.append(out.detach().cpu())
+    assert float((logits[0] - logits[1]).abs().max()) <= 1e-4
+    grads = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        want = grads[name].grad
+        err = float((p.grad.cpu() - want).norm())
+        assert err <= 1e-1 * float(want.norm()), name
+    bufs = dict(cpu.named_buffers())
+    for name, t in card.named_buffers():
+        assert float((t.cpu() - bufs[name]).abs().max()) <= 1e-4, name

@@ -45,8 +45,9 @@ def test_no_jax_imports_anywhere_in_the_port():
 
 
 def test_port_imports_and_serves_with_jax_blocked():
-    """Every module imports, the engine serves and a training step runs
-    with jax, flax, optax and horovod_tpu blocked outright."""
+    """Every module imports, the engine serves and training steps run
+    (the transformer's and the ResNet's) with jax, flax, optax and
+    horovod_tpu blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -63,6 +64,10 @@ def test_port_imports_and_serves_with_jax_blocked():
         "    reduce_ops)\n"
         "from horovod_tpu_torch.models import Transformer, gpt_small\n"
         "from horovod_tpu_torch.models import params_to_numpy_tree\n"
+        "from horovod_tpu_torch.ops import fused_norm\n"
+        "from horovod_tpu_torch.models import (ResNetTiny, MLP, LeNet,\n"
+        "    resnet_params_to_flax)\n"
+        "from horovod_tpu_torch import sync_batch_norm\n"
         "cfg = TransformerConfig(vocab_size=50, num_layers=1, num_heads=2,\n"
         "    head_dim=8, max_seq_len=32, dtype=torch.float32)\n"
         "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
@@ -81,6 +86,12 @@ def test_port_imports_and_serves_with_jax_blocked():
         "training.softmax_cross_entropy(m(toks[:, :-1]), toks[:, 1:])\\\n"
         "    .backward()\n"
         "opt.step()\n"
+        "rn = ResNetTiny(dtype=torch.float32, device='cpu')\n"
+        "ro = torch.optim.SGD(rn.parameters(), lr=0.1, momentum=0.9)\n"
+        "rstep = training.data_parallel_train_step(rn, ro)\n"
+        "_, rl = rstep(training.create_train_state(rn, ro),\n"
+        "    torch.randn(2, 16, 16, 3), torch.tensor([1, 2]))\n"
+        "assert bool(torch.isfinite(rl))\n"
         "hvd.shutdown()\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
@@ -127,6 +138,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, torch.Generator().manual_seed(0),
                     param_dtype=torch.float32)
+    from horovod_tpu_torch.models import ResNetTiny
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNetTiny()
+    assert ResNetTiny(device="cpu").head.kernel.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
