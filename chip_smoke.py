@@ -15,16 +15,24 @@ if any fails:
 3. kernels (kernel vs plain): every kernel against its plain PyTorch
    version on the card, each case with its absolute and per-row relative
    error against their tolerances, its time, the plain version's, SDPA's
-   (timed only, never called by the port) and the card's bound:
+   (timed only, never called by the port) and the card's bound (the
+   serving cases' kernel time is device time, calls enqueued behind a
+   spin kernel, with the host-inclusive call time beside it: the small
+   cases' kernels are shorter than the wrapper's host work):
    - the paged forward (serving): decode and chunk cases (llama3_8b
      heads 32/8 at D=128, an MHA case at D=64, a windowed case with
-     nonzero ``kv_start``, pad rows that must come back exactly zero;
-     bf16 and fp32);
+     nonzero ``kv_start``, decode pad slots and chunk rows placed before
+     their first key, which must come back exactly zero with the -1e30
+     log-sum-exp sentinel; bf16 and fp32);
    - the training kernels — the uniform-offset forward (out and lse),
      dQ, and dK/dV: gpt_small's shape (B=8, S=2048, 12 heads of 64; the
      main path's), llama3_8b's attention (32/8 heads, D=128, S=4096,
      the GQA group sum), bidirectional, a causal and a bidirectional
      window of 256, a ragged S=1000; bf16 and fp32;
+   - every forward case asserts on the per-variant counters that it ran
+     the variant the wrapper's rule gives it: ``sm90`` (wgmma + TMA) for
+     every bf16 case with more than four query rows, ``simt`` (CUDA
+     cores) for fp32 and decode;
    - the fused BatchNorm kernels (stats, apply, backward reduce, dx):
      all 16 distinct (M, C, ReLU, residual) shapes of ResNet-50's 53
      norm sites at batch 128, 224x224 (the main path's) in bf16, three
@@ -38,8 +46,9 @@ if any fails:
      and the card's bound;
 4. serving: ``ServingEngine`` over llama3_8b at full width (32 layers,
    bf16, random weights from a seeded generator on the card) serves two
-   waves of requests; every request must complete, the kernel must have
-   launched exactly 32 times per engine step, the second wave must hit
+   waves of requests; every request must complete, the forward must
+   have launched exactly 32 times per engine step (the sm90 variant on
+   mixed steps, the simt one on decode steps), the second wave must hit
    the prefix cache, and each first token's logits must match a dense
    cache-free forward;
 5. oracle: llama3_8b width, 2 layers, fp32 — greedy streams through the
@@ -49,7 +58,8 @@ if any fails:
    ``init()`` (world 1 over NCCL), ``replicate_state`` and
    ``data_parallel_train_step``, 10 steps on one fixed batch: every loss
    finite and the last below the first, exactly 12 launches of each
-   training kernel per step; tokens/s, MFU, peak memory, then the
+   training kernel per step, every forward the sm90 variant; tokens/s,
+   MFU, peak memory, then the
    device busy share and time by kernel class over 2 profiled steps;
 7. training_oracle: gpt_small width, 2 layers, fp32 — the gradient of
    every parameter through the kernels ("flash") against the plain dense
@@ -70,11 +80,12 @@ if any fails:
 Each main path (serving, training, resnet) is driven with the kernels'
 launch counts set to 0 just before it and read just after.  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
-before the last (one entry per kernel source and C entry: ``launches``
-from the main paths' runs, the other numbers from the kernel phase at
-the main path's shape — for the fused-norm kernels, summed over the 53
-sites of one ResNet-50 step; null where ``--phases`` left that phase
-out);
+before the last (one entry per kernel and C entry, the forward's two
+variants apart: ``launches`` from the main paths' runs, the other
+numbers from the kernel phase at the main path's shape — the sm90
+forward at gpt_small's training forward, the simt one at serving's
+decode, the fused-norm kernels summed over the 53 sites of one
+ResNet-50 step; null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 ``--phases`` runs a subset (e.g. ``--phases kernels,training``); the
@@ -219,13 +230,31 @@ def bound_ms(case, mask):
                                        else "operations")
 
 
+def _variant_counts():
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    return {"sm90": fa.flash_fwd_cuda.sm90_launches,
+            "simt": fa.flash_fwd_cuda.simt_launches}
+
+
+def _launched(before):
+    """The forward variants launched since ``before`` (_variant_counts)."""
+    return {k: n - before[k] for k, n in _variant_counts().items()
+            if n != before[k]}
+
+
 def run_case(case):
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
 
     q, k, v = case["q"], case["k"], case["v"]
     b, c, h, d = q.shape
+    # the sm90 forward takes every bf16 chunk (C > 4) at D 64 or 128; the
+    # CUDA-core one fp32 and decode
+    want = "sm90" if q.dtype == torch.bfloat16 and not case["decode"] \
+        else "simt"
     kw = dict(window=case["window"], kv_start=case["kv_start"])
     if case["decode"]:
         call = lambda: fa.flash_decode_attention(  # noqa: E731
@@ -235,8 +264,10 @@ def run_case(case):
             q, k, v, case["q_starts"], **kw)
     plain = lambda: fa.flash_chunk_attention_reference(  # noqa: E731
         q, k, v, case["q_starts"], **kw)
+    before = _variant_counts()
     out = call()
     torch.cuda.synchronize()
+    variant = _launched(before)
     ref = plain()
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
@@ -244,14 +275,23 @@ def run_case(case):
     row_err = float((diff.amax(dim=-1) / scale).max())
     dtype = str(q.dtype).split(".")[-1]
     ok = (math.isfinite(err) and err <= TOL[dtype]
-          and math.isfinite(row_err) and row_err <= ROW_TOL[dtype])
-    if case["decode"] and case["kv_lens"] is not None:
-        pad = case["kv_lens"] <= 0
-        if bool(pad.any()):
-            zero = bool((out[pad] == 0).all())
-            ok = ok and zero
-            log(f"  {case['name']}: pad rows exactly zero: {zero}")
+          and math.isfinite(row_err) and row_err <= ROW_TOL[dtype]
+          and variant == {want: 1})
     mask = visible_mask(case)
+    # rows with no visible key (decode pad slots, chunk rows before a
+    # sequence starts): exact zeros, and the -1e30 log-sum-exp sentinel
+    empty = ~mask.any(dim=-1)  # (B, C)
+    if bool(empty.any()):
+        zero = bool((out[empty] == 0).all())
+        offs = fa._row_offsets(case["q_starts"], case["kv_start"], b,
+                               q.device).contiguous()
+        _, lse = fa.flash_fwd_cuda(q, k, v, offs, window=case["window"],
+                                   with_lse=True)
+        sentinel = bool((lse.transpose(1, 2)[empty]
+                         == float(np.float32(-1e30))).all())
+        ok = ok and zero and sentinel
+        log(f"  {case['name']}: {int(empty.sum())} rows without a visible "
+            f"key: exactly zero {zero}, lse sentinel {sentinel}")
     bnd, by = bound_ms(case, mask)
     # SDPA on the same function, timed only (never used by the port)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -264,10 +304,12 @@ def run_case(case):
         log(f"  {case['name']}: library call unavailable ({e!r})")
         lib_ms = None
     rec = dict(case=case["name"], shape=[b, c, h, k.shape[2], d, k.shape[1]],
-               dtype=dtype, max_abs_err=err, tol=TOL[dtype],
+               dtype=dtype, variant=want, launched=variant,
+               max_abs_err=err, tol=TOL[dtype],
                max_row_rel_err=row_err, row_tol=ROW_TOL[dtype], ok=ok,
-               kernel_ms=cuda_ms(call), plain_ms=cuda_ms(plain, reps=3),
-               library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+               kernel_ms=device_ms(call), call_ms=cuda_ms(call),
+               plain_ms=cuda_ms(plain, reps=3), library_ms=lib_ms,
+               bound_ms=bnd, bound_by=by)
     log("  " + json.dumps(rec))
     return rec
 
@@ -308,6 +350,11 @@ def phase_kernels():
             f"chunk_window_{tag}", b=8, c=cw, h=32, h_kv=8, d=128,
             s=((win + cw - 1) // 16 + 2) * 16, dtype=dt, q_starts=lens,
             kv_start=[f * 16 for f in first], window=win))
+    # chunk rows placed before their sequence's first key (whole rows and
+    # the head of a row): no visible key, exact zeros through sm90
+    cases.append(make_case(
+        "chunk_empty_rows_bf16", b=8, c=64, h=32, h_kv=8, d=128, s=4096,
+        dtype=bf, q_starts=[-64, 5, -64, 300, -10, 1000, -64, 4000]))
     pad_lens = [0, 5, 0, 300, 0, 1, 0, 4096]
     cases.append(make_case(
         "decode_pad_rows_bf16", b=8, c=1, h=32, h_kv=8, d=128, s=4096,
@@ -320,7 +367,8 @@ def phase_kernels():
         torch.cuda.empty_cache()
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
-        raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+        raise AssertionError(f"kernel disagrees with its plain version (or "
+                             f"ran another variant): {bad}")
     return recs
 
 
@@ -403,7 +451,11 @@ def run_train_case(name, b, s, h, h_kv, d, causal, window, dtype_name):
         mk(b, s, h, d)
     kw = dict(causal=causal, window=window)
     fwd = lambda: fa.flash_forward(q, k, v, causal, window)  # noqa: E731
+    before = _variant_counts()
     out, lse = fwd()
+    torch.cuda.synchronize()
+    want = "sm90" if dtype == torch.bfloat16 else "simt"
+    variant = _launched(before)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq_k = lambda: fa.flash_bwd_dq_cuda(  # noqa: E731
         q, k, v, do, lse, delta, **kw)
@@ -427,13 +479,15 @@ def run_train_case(name, b, s, h, h_kv, d, causal, window, dtype_name):
     r_dk, r_dv = plain_dkv()
     errs["dk"], errs["dv"] = _errors(dk, r_dk), _errors(dv, r_dv)
     del r_dk, r_dv
-    ok = all(math.isfinite(a) and a <= TOL[dtype_name] * top
-             and math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
-             for a, r, top in errs.values())
+    ok = variant == {want: 1} and all(
+        math.isfinite(a) and a <= TOL[dtype_name] * top
+        and math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
+        for a, r, top in errs.values())
     bounds, triples = _train_bounds(b, s, h, h_kv, d, causal, window,
                                     q.element_size(), dtype_name)
     rec = dict(case=name, shape=[b, s, h, h_kv, d], causal=causal,
-               window=window, dtype=dtype_name, ok=ok, triples=triples,
+               window=window, dtype=dtype_name, ok=ok, variant=want,
+               launched=variant, triples=triples,
                tol=TOL[dtype_name], row_tol=TRAIN_ROW_TOL[dtype_name],
                errors={key: dict(abs=a, row=r, abs_bound=TOL[dtype_name]
                                  * top) for key, (a, r, top) in errs.items()})
@@ -771,7 +825,8 @@ def phase_serving():
     prompts = {}
     torch.cuda.reset_peak_memory_stats()
     since = trace.now()
-    fa.flash_fwd_cuda.launches = 0
+    fwd = fa.flash_fwd_cuda
+    fwd.launches = fwd.sm90_launches = fwd.simt_launches = 0
     steps0 = eng.steps
     t_run = time.perf_counter()
     for p in wave1:
@@ -782,13 +837,26 @@ def phase_serving():
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    launches = fa.flash_fwd_cuda.launches
+    launches = fwd.launches
+    by_variant = {"sm90": fwd.sm90_launches, "simt": fwd.simt_launches}
     steps = eng.steps - steps0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert sorted(out) == sorted(prompts), "not every request completed"
     assert all(len(out[r]) == 32 for r in prompts), "short stream"
     assert launches == cfg.num_layers * steps, (
         f"kernel launches {launches} != {cfg.num_layers} x {steps} steps")
+    # mixed steps (chunks of >= 32 columns) run the sm90 forward, decode
+    # steps the CUDA-core one: one launch per layer each
+    kinds = [args["kind"] for site, _t, _d, args, _tid
+             in trace.snapshot(since) if site == "serve.step" and args]
+    step_kinds = {k: kinds.count(k) for k in ("mixed", "decode")}
+    assert sum(step_kinds.values()) == steps, (kinds, steps)
+    assert step_kinds["mixed"] > 0 and step_kinds["decode"] > 0, step_kinds
+    want = {"sm90": cfg.num_layers * step_kinds["mixed"],
+            "simt": cfg.num_layers * step_kinds["decode"]}
+    assert by_variant == want, (
+        f"forward launches by variant {by_variant} != {want} "
+        f"(mixed steps -> sm90, decode steps -> simt)")
     hits = eng.scheduler.prefix_hit_blocks
     assert hits > 0, "the second wave hit no cached prefix block"
     # first-token logits against a dense, cache-free forward (bf16)
@@ -811,6 +879,7 @@ def phase_serving():
            in trace.snapshot(since)
            if site == "serve.step" and args and args["kind"] == "decode"]
     rec = dict(requests=len(out), steps=steps, launches=launches,
+               launches_by_variant=by_variant, step_kinds=step_kinds,
                prefix_hit_blocks=hits, evictions=eng.scheduler.evictions,
                prefill_tokens_computed=eng.prefill_tokens_computed,
                ttft_p50_s=ttft[len(ttft) // 2], tokens=gen, wall_s=wall,
@@ -974,13 +1043,21 @@ def _reset_train_counts():
 
     for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
         fn.launches = 0
+    fa.flash_fwd_cuda.sm90_launches = fa.flash_fwd_cuda.simt_launches = 0
+
+
+TRAIN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_sm90",
+                "flash_fwd_simt")
 
 
 def _train_counts():
+    """Launches of (fwd, dq, dkv, the fwd's sm90 variant, its simt one)."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
-            fa.flash_bwd_dkv_cuda.launches)
+    fwd = fa.flash_fwd_cuda
+    return (fwd.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches, fwd.sm90_launches,
+            fwd.simt_launches)
 
 
 def phase_training():
@@ -1032,9 +1109,11 @@ def phase_training():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert all(math.isfinite(x) for x in losses), f"loss not finite: {losses}"
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    want = (cfg.num_layers,) * 3
+    # every forward of the bf16 step is the sm90 variant
+    want = (cfg.num_layers,) * 4 + (0,)
     assert all(c == want for c in per_step), (
-        f"kernel launches per step {per_step} != {want} (fwd, dq, dkv)")
+        f"kernel launches per step {per_step} != {want} "
+        f"({', '.join(TRAIN_COUNTS)})")
     assert state.step == TRAIN_STEPS
     tokens = TRAIN_B * TRAIN_S
     steady = times[1:]  # the first step pays one-time set-up
@@ -1049,8 +1128,7 @@ def phase_training():
                step_s_mean_steady=step_s, tokens_per_s=tokens / step_s,
                mfu_6n=mfu, mfu_6n_plus_attention=mfu + attn / step_s
                / PEAK_FLOPS["bfloat16"],
-               launches=dict(zip(("flash_fwd", "flash_bwd_dq",
-                                  "flash_bwd_dkv"), launches)),
+               launches=dict(zip(TRAIN_COUNTS, launches)),
                launches_per_step=list(per_step[0]), peak_mem_gb=peak_gb)
     log("  training: " + json.dumps(rec))
     rec["profile"] = profile_train(step, state, inputs, labels)
@@ -1427,40 +1505,55 @@ def bn_entries(bn_kern, resnet):
 
 
 def kernel_entries(kern, train_kern, serving, train):
-    """The ``kernels`` JSON line: one entry per kernel source and C
-    entry.  ``launches`` come from the main paths' runs (flash_fwd: the
-    serving run's plus the training run's), the other numbers from the
-    kernel phase at the main path's shape (flash_fwd: the training
-    forward, gpt_small bf16); a phase left out by ``--phases`` leaves its
+    """The ``kernels`` JSON line: one entry per kernel and C entry.  The
+    forward has two: ``flash_fwd_sm90`` (its numbers at the training
+    forward's shape, gpt_small bf16: the main path's) and
+    ``flash_fwd_simt`` (at serving's decode shape, ``decode_gqa_bf16``:
+    its main path's).  ``launches`` come from the main paths' runs (the
+    forwards: the serving run's plus the training run's), the other
+    numbers from the kernel phase; ``max_abs_err`` over every kernel-phase
+    case of that kernel; a phase left out by ``--phases`` leaves its
     numbers null."""
     main = train_kern[0] if train_kern else None
-    fwd_launches = None
-    if serving or train:
-        fwd_launches = ((serving["launches"] if serving else 0)
-                        + (train["launches"]["flash_fwd"] if train else 0))
+    fwd_launches = {}
+    for variant in ("sm90", "simt"):
+        if serving or train:
+            fwd_launches[variant] = (
+                (serving["launches_by_variant"][variant] if serving else 0)
+                + (train["launches"][f"flash_fwd_{variant}"] if train else 0))
+    decode = next((r for r in kern or () if r["case"] == "decode_gqa_bf16"),
+                  None)
     entries = []
     for name, key, src, line in (
-            ("flash_fwd", "fwd", "flash_fwd.cu", 104),
+            ("flash_fwd_sm90", "sm90", "flash_fwd_sm90.cu", 104),
+            ("flash_fwd_simt", "simt", "flash_fwd.cu", 104),
             ("flash_bwd_dq", "dq", "flash_bwd.cu", 301),
             ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 342)):
         e = dict(name=name, route="cuda",
                  source=f"horovod_tpu_torch/csrc/{src}",
                  replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
-                 launches=(fwd_launches if key == "fwd" else
-                           train["launches"][name] if train else None),
+                 launches=(fwd_launches.get(key) if key in ("sm90", "simt")
+                           else train["launches"][name] if train else None),
                  max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
                  bound_by=None, library_ms=None)
-        if main:
-            outs = {"fwd": ("o", "lse"), "dq": ("dq",),
-                    "dkv": ("dk", "dv")}[key]
-            errs = [r["errors"][o]["abs"] for r in train_kern for o in outs]
-            if key == "fwd":
-                errs += [r["max_abs_err"] for r in kern]
-            e.update(max_abs_err=max(errs), ms=main[key]["kernel_ms"],
-                     plain_ms=main[key]["plain_ms"],
-                     bound_ms=main[key]["bound_ms"],
-                     bound_by=main[key]["bound_by"],
-                     library_ms=main[key]["library_ms"])
+        if key in ("sm90", "simt") and kern and train_kern:
+            errs = [r["errors"][o]["abs"] for r in train_kern
+                    if r["variant"] == key for o in ("o", "lse")]
+            errs += [r["max_abs_err"] for r in kern if r["variant"] == key]
+            at = main["fwd"] if key == "sm90" else dict(
+                kernel_ms=decode["kernel_ms"], plain_ms=decode["plain_ms"],
+                bound_ms=decode["bound_ms"], bound_by=decode["bound_by"],
+                library_ms=decode["library_ms"])
+        elif main:
+            errs = [r["errors"][o]["abs"] for r in train_kern
+                    for o in {"dq": ("dq",), "dkv": ("dk", "dv")}[key]]
+            at = main[key]
+        else:
+            at = None
+        if at:
+            e.update(max_abs_err=max(errs), ms=at["kernel_ms"],
+                     plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+                     bound_by=at["bound_by"], library_ms=at["library_ms"])
         entries.append(e)
     return entries
 

@@ -5,11 +5,15 @@ become CUDA C++ for Hopper, built at first use by :mod:`._build`; each
 source's note says what bounds it on the card and what its design does
 about that:
 
-* ``csrc/flash_fwd.cu`` — ``_fwd_kernel`` in both of its launches: the
-  per-row-offset one (:func:`flash_chunk_attention`,
-  :func:`flash_decode_attention`, the serving path) and the
-  uniform-offset one (the forward of :func:`flash_attention`, which also
-  writes the log-sum-exp);
+* ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_fwd.cu`` — ``_fwd_kernel``
+  in both of its launches: the per-row-offset one
+  (:func:`flash_chunk_attention`, :func:`flash_decode_attention`, the
+  serving path) and the uniform-offset one (the forward of
+  :func:`flash_attention`, which also writes the log-sum-exp).  Two
+  variants, picked by :func:`_fwd_variant` from dtype, head_dim and
+  query rows: ``sm90`` (wgmma + TMA on the tensor cores: bf16, D in
+  {64, 128}, C > 4 — training forwards and prefill chunks) and ``simt``
+  (the CUDA-core kernel: fp32, other head widths, decode);
 * ``csrc/flash_bwd.cu`` — ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the
   backward of :func:`flash_attention`.
 
@@ -24,7 +28,9 @@ plain version on the card.  :func:`_tile_mask`, :func:`_kb_range` and
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain versions, CUDA tensors launch the kernels (or raise).  Each
-kernel wrapper counts its launches in ``<wrapper>.launches``.
+kernel wrapper counts its launches in ``<wrapper>.launches``; the
+forward also per variant (``flash_fwd_cuda.sm90_launches``,
+``flash_fwd_cuda.simt_launches``).
 """
 
 from __future__ import annotations
@@ -220,7 +226,7 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
 def _check_cuda(q, k, v, *extra):
     """Raise unless q/k/v (and ``extra`` (name, tensor) pairs) are CUDA
     tensors on q's device in one supported dtype, GQA-shaped, with a
-    contiguous last dim and 16-byte aligned rows."""
+    contiguous last dim and 16-byte aligned rows (:func:`_check_aligned`)."""
     b, _, _, d = q.shape
     tensors = (("q", q), ("k", k), ("v", v)) + extra
     for name, t in tensors:
@@ -239,15 +245,32 @@ def _check_cuda(q, k, v, *extra):
     _group_of(q, k)
     if d % 8 or d > 256:
         raise ValueError(f"head_dim {d} must be a multiple of 8, <= 256")
-    vec = 16 // q.element_size()
     for name, t in tensors:
         if t.dtype != q.dtype or t.dim() != 4:
             continue
-        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a contiguous last dim, got "
+                             f"strides {t.stride()}")
+        _check_aligned(name, t.data_ptr(), t.stride()[:3], t.element_size())
+
+
+def _check_aligned(name, ptr, strides, element_size):
+    """Raise ``ValueError`` unless a tensor at address ``ptr`` with
+    element ``strides`` (every dim but the contiguous last) suits the
+    kernels' 16-byte accesses: base 16-byte aligned, each stride a
+    multiple of 16 bytes below 2**40 bytes — what the CUDA-core kernels'
+    vector loads need, and the sm90 forward's TMA tensor maps.  Pure: no
+    device access."""
+    if ptr % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned base pointer "
+                         f"(16-byte loads, TMA), got address {ptr:#x}")
+    for s in strides:
+        nbytes = s * element_size
+        if nbytes % 16 or not 0 <= nbytes < 2 ** 40:
             raise ValueError(
-                f"{name} needs a contiguous last dim and 16-byte aligned "
-                f"rows, got strides {t.stride()}")
+                f"{name} needs strides that are multiples of 16 bytes "
+                f"below 2**40, got {tuple(strides)} elements of "
+                f"{element_size} bytes")
 
 
 def _check_stats(b, h, s, device, **stats):
@@ -258,10 +281,29 @@ def _check_stats(b, h, s, device, **stats):
                              f"tensor on {device}")
 
 
+#: head widths the sm90 forward takes (a 128-byte TMA swizzle row is 64
+#: bf16 columns; the kernel's tiles are one or two such regions)
+_SM90_HEAD_DIMS = (64, 128)
+
+
+def _fwd_variant(dtype, d, c) -> str:
+    """Which forward kernel a CUDA launch takes, by a fixed rule of dtype,
+    head_dim and query rows: ``"sm90"`` (``csrc/flash_fwd_sm90.cu``,
+    wgmma + TMA) for bf16 with D in {64, 128} and C > 4 — the training
+    forward and prefill chunks; ``"simt"`` (``csrc/flash_fwd.cu``, CUDA
+    cores) for fp32, any other D, and decode (C <= 4)."""
+    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS and c > 4:
+        return "sm90"
+    return "simt"
+
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _FWD_ARGS = {"hvd_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 12
              + [_I, _I, _F, _I, _P]}
+_SM90_ARGS = {"hvd_flash_fwd_sm90": [_P] * 6 + [_I] * 6 + [_L] * 12
+              + [_I, _I, _F, _P],
+              "hvd_wgmma_tile": [_P, _P, _P, _I, _I, _P]}
 _BWD_ARGS = {
     "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
     "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
@@ -274,41 +316,85 @@ def _stream(t):
 
 def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
                    causal=True):
-    """Launch the forward kernel (``csrc/flash_fwd.cu``) on CUDA tensors:
-    attention on global positions, every key valid.
+    """Launch the forward kernel on CUDA tensors: attention on global
+    positions, every key valid.  The variant follows :func:`_fwd_variant`:
+    ``csrc/flash_fwd_sm90.cu`` (bf16, D in {64, 128}, C > 4) or
+    ``csrc/flash_fwd.cu`` (the rest).
 
     q: (B, C, H, D); k, v: (B, S, H_kv, D) with ``H_kv | H``; offs: (B,)
     int32 global K start minus global Q start per row.  bf16 or fp32,
-    last dim contiguous and 16-byte aligned rows, D a multiple of 8 up
-    to 256.  ``causal=False`` is bidirectional (a window then reaches
-    both ways).
+    last dim contiguous, base pointers and strides 16-byte aligned
+    (:func:`_check_aligned`), D a multiple of 8 up to 256.
+    ``causal=False`` is bidirectional (a window then reaches both
+    ways).
     Returns o (B, C, H, D) in q's dtype, plus the fp32 log-sum-exp
     (B, H, C) when ``with_lse``.  Raises on anything the kernel does
     not take and on a launch error; ``flash_fwd_cuda.launches`` counts
-    successful launches."""
+    successful launches, ``flash_fwd_cuda.sm90_launches`` and
+    ``.simt_launches`` those of each variant."""
     b, c, h, d = q.shape
     _check_cuda(q, k, v, ("offs", offs))
     if offs.dtype != torch.int32 or offs.shape != (b,) \
             or not offs.is_contiguous():
         raise ValueError("offs must be a contiguous (B,) int32 tensor")
+    variant = _fwd_variant(q.dtype, d, c)
+    if variant == "sm90":
+        lib = _build.bound("flash_fwd_sm90.cu", _SM90_ARGS)
+        entry, tail = "hvd_flash_fwd_sm90", ()
+    else:
+        lib = _build.bound("flash_fwd.cu", _FWD_ARGS)
+        entry, tail = "hvd_flash_fwd", (int(q.dtype == torch.bfloat16),)
     o = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, c), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _build.bound("flash_fwd.cu", _FWD_ARGS)
     with torch.cuda.device(q.device):
-        _build.launch(lib, "hvd_flash_fwd", (
+        _build.launch(lib, entry, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None, offs.data_ptr(),
             b, c, h, k.shape[2], k.shape[1], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], 0 if window is None else int(window),
-            int(bool(causal)), 1.0 / math.sqrt(d),
-            int(q.dtype == torch.bfloat16), _stream(q)))
+            int(bool(causal)), 1.0 / math.sqrt(d), *tail, _stream(q)))
     flash_fwd_cuda.launches += 1
+    if variant == "sm90":
+        flash_fwd_cuda.sm90_launches += 1
+    else:
+        flash_fwd_cuda.simt_launches += 1
     return (o, lse) if with_lse else o
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.sm90_launches = 0
+flash_fwd_cuda.simt_launches = 0
+
+
+def wgmma_tile_cuda(a, b, pv):
+    """One tile product of the sm90 forward on one warpgroup, through its
+    own TMA loads, descriptors and ``wgmma`` (the card's unit tests):
+    ``pv=False``: a (64, D) · b (BK, D)ᵀ, both operands K-major (S =
+    Q·Kᵀ); ``pv=True``: a (64, BK) · b (BK, D), a from registers, b
+    MN-major (O = P·V).  bf16, contiguous, D in {64, 128}; BK = 128 at
+    D = 64 and 64 at D = 128.  Returns the fp32 product."""
+    d = b.shape[1]
+    bk = 128 if d == 64 else 64
+    want_a = (64, bk) if pv else (64, d)
+    if d not in _SM90_HEAD_DIMS or tuple(b.shape) != (bk, d) \
+            or tuple(a.shape) != want_a:
+        raise ValueError(f"tile shapes {tuple(a.shape)} {tuple(b.shape)}")
+    for name, t in (("a", a), ("b", b)):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bf16 CUDA tensor")
+        _check_aligned(name, t.data_ptr(), t.stride()[:-1],
+                       t.element_size())
+    out = torch.empty((64, d if pv else bk), dtype=torch.float32,
+                      device=a.device)
+    lib = _build.bound("flash_fwd_sm90.cu", _SM90_ARGS)
+    with torch.cuda.device(a.device):
+        _build.launch(lib, "hvd_wgmma_tile", (
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), d, int(bool(pv)),
+            _stream(a)))
+    return out
 
 
 def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):

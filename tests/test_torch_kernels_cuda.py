@@ -66,6 +66,113 @@ def test_kernel_lse_and_zero_rows():
     assert float((lse[1, :, 0] - want).abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("pv", [False, True])
+def test_sm90_wgmma_tile_product_matches_matmul(d, pv):
+    """One 64-row tile product of the sm90 forward through its own TMA
+    loads, swizzled descriptors and wgmma: S = Q·Kᵀ (both operands
+    K-major) or O = P·V (P from registers, V MN-major), against
+    torch.matmul in fp32 on the same bf16 inputs."""
+    _need_card()
+    bk = 128 if d == 64 else 64
+    g = torch.Generator("cuda").manual_seed(d + pv)
+    a = torch.randn((64, bk if pv else d), generator=g,
+                    device="cuda").bfloat16()
+    b = torch.randn((bk, d), generator=g, device="cuda").bfloat16()
+    got = tfa.wgmma_tile_cuda(a, b, pv)
+    want = a.float() @ (b.float() if pv else b.float().T)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    # fp32 sums of 64-128 exact bf16 products: rounding only
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def _row_errors(out, ref):
+    diff = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().amax(dim=-1).clamp_min(1e-30)
+    return float(diff.max()), float((diff.amax(dim=-1) / scale).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 33), (False, 33)])
+def test_sm90_training_forward_matches_plain_version(seed, d, causal,
+                                                     window):
+    """The uniform-offset forward through the sm90 variant: GQA 8/2, a
+    ragged S = 333; output and log-sum-exp against the plain version
+    (bf16: 2e-2 absolute, 1e-2 of each row's largest |output|, as
+    chip_smoke.py holds it).  Several seeds: a stage released early
+    would fail only sometimes."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(seed)
+    b, s, h, h_kv = 2, 333, 8, 2
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device="cuda").bfloat16()
+    q, k, v = mk(b, s, h, d), mk(b, s, h_kv, d), mk(b, s, h_kv, d)
+    before = tfa.flash_fwd_cuda.sm90_launches
+    out, lse = tfa.flash_forward(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.sm90_launches == before + 1
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal, window)
+    err, row = _row_errors(out, ref)
+    assert err <= 2e-2 and row <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [None, 33])
+def test_sm90_chunk_matches_plain_version_with_offsets_and_empty_rows(
+        d, window):
+    """Per-row offsets (nonzero kv_start) through the sm90 variant; rows
+    placed before their sequence's first key see nothing and come back
+    as exact zeros with the -1e30 log-sum-exp sentinel."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(d)
+    b, c, h, h_kv, s = 4, 40, 8, 2, 300
+    q = torch.randn((b, c, h, d), generator=g, device="cuda").bfloat16()
+    k = torch.randn((b, s, h_kv, d), generator=g, device="cuda").bfloat16()
+    v = torch.randn((b, s, h_kv, d), generator=g, device="cuda").bfloat16()
+    starts = torch.tensor([-40, 17, 100, 30], dtype=torch.int32,
+                          device="cuda")
+    kv_start = torch.tensor([0, 0, 16, 50], dtype=torch.int32, device="cuda")
+    before = tfa.flash_fwd_cuda.sm90_launches
+    out = tfa.flash_chunk_attention(q, k, v, starts, window=window,
+                                    kv_start=kv_start)
+    ref = tfa.flash_chunk_attention_reference(q, k, v, starts,
+                                              window=window,
+                                              kv_start=kv_start)
+    offs = (kv_start - starts).contiguous()
+    _, lse = tfa.flash_fwd_cuda(q, k, v, offs, window=window, with_lse=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.sm90_launches == before + 2
+    err, row = _row_errors(out, ref)
+    assert err <= 2e-2 and row <= 1e-2
+    # row 0 sits at -40..-1, row 3's first 20 queries before kv_start 50
+    empty = torch.zeros((b, c), dtype=torch.bool, device="cuda")
+    empty[0] = True
+    empty[3, :20] = True
+    sentinel = float(np.float32(-1e30))
+    assert bool((out[empty] == 0).all())
+    assert bool((lse.transpose(1, 2)[empty] == sentinel).all())
+    assert bool((lse.transpose(1, 2)[~empty] > -1e29).all())
+
+
+def test_sm90_refuses_a_misaligned_view():
+    """A bf16 view off 16 bytes raises before any launch; nothing falls
+    back to the CUDA-core kernel."""
+    _need_card()
+    buf = torch.zeros(2 * 16 * 4 * 64 + 8, dtype=torch.bfloat16,
+                      device="cuda")
+    q = buf[1:1 + 2 * 16 * 4 * 64].view(2, 16, 4, 64)
+    k = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16, device="cuda")
+    before = tfa.flash_fwd_cuda.launches
+    with pytest.raises(ValueError):
+        tfa.flash_forward(q, k, k)
+    assert tfa.flash_fwd_cuda.launches == before
+
+
 def test_engine_on_card_matches_engine_on_cpu():
     """The same fp32 weights and requests through the engine on the card
     (the kernel) and on the CPU (the plain version): identical greedy
