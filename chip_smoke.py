@@ -32,7 +32,9 @@ if any fails:
    - every forward case asserts on the per-variant counters that it ran
      the variant the wrapper's rule gives it: ``sm90`` (wgmma + TMA) for
      every bf16 case with more than four query rows, ``simt`` (CUDA
-     cores) for fp32 and decode;
+     cores) for fp32 and decode; every training case likewise for dq and
+     dkv (``sm90`` in bf16, ``simt`` in fp32), and that a second dq and
+     dkv call gives bitwise identical gradients;
    - the fused BatchNorm kernels (stats, apply, backward reduce, dx):
      all 16 distinct (M, C, ReLU, residual) shapes of ResNet-50's 53
      norm sites at batch 128, 224x224 (the main path's) in bf16, three
@@ -58,12 +60,14 @@ if any fails:
    ``init()`` (world 1 over NCCL), ``replicate_state`` and
    ``data_parallel_train_step``, 10 steps on one fixed batch: every loss
    finite and the last below the first, exactly 12 launches of each
-   training kernel per step, every forward the sm90 variant; tokens/s,
+   training kernel per step, every forward, dq and dkv the sm90 variant
+   (no CUDA-core launch); tokens/s,
    MFU, peak memory, then the
    device busy share and time by kernel class over 2 profiled steps;
 7. training_oracle: gpt_small width, 2 layers, fp32 — the gradient of
    every parameter through the kernels ("flash") against the plain dense
-   path ("dot") on the same weights and batch;
+   path ("dot") on the same weights and batch, through the CUDA-core
+   (simt) forward, dq and dkv: 2 launches of each;
 8. resnet: ResNet-50 at full width and depth (bench.py's configuration:
    1000 classes, bf16 over fp32 masters, space-to-depth stem), batch
    128 of 224x224 seeded images, SGD(0.1, momentum 0.9), through
@@ -84,8 +88,10 @@ before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
 numbers from the kernel phase at the main path's shape — the sm90
 forward at gpt_small's training forward, the simt one at serving's
-decode, the fused-norm kernels summed over the 53 sites of one
-ResNet-50 step; null where ``--phases`` left that phase out);
+decode, the sm90 dq and dkv at gpt_small's bf16 backward, the simt ones
+at gpt_small's fp32 backward (their path: the fp32 training oracle),
+the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
+null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 ``--phases`` runs a subset (e.g. ``--phases kernels,training``); the
@@ -230,16 +236,19 @@ def bound_ms(case, mask):
                                        else "operations")
 
 
-def _variant_counts():
+def _variant_counts(fn=None):
+    """Launches of each variant of a kernel wrapper (default: the
+    forward's, ``flash_fwd_cuda``)."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    return {"sm90": fa.flash_fwd_cuda.sm90_launches,
-            "simt": fa.flash_fwd_cuda.simt_launches}
+    fn = fn or fa.flash_fwd_cuda
+    return {"sm90": fn.sm90_launches, "simt": fn.simt_launches}
 
 
-def _launched(before):
-    """The forward variants launched since ``before`` (_variant_counts)."""
-    return {k: n - before[k] for k, n in _variant_counts().items()
+def _launched(before, fn=None):
+    """The variants of ``fn`` launched since ``before``
+    (_variant_counts)."""
+    return {k: n - before[k] for k, n in _variant_counts(fn).items()
             if n != before[k]}
 
 
@@ -461,9 +470,19 @@ def run_train_case(name, b, s, h, h_kv, d, causal, window, dtype_name):
         q, k, v, do, lse, delta, **kw)
     dkv_k = lambda: fa.flash_bwd_dkv_cuda(  # noqa: E731
         q, k, v, do, lse, delta, **kw)
+    bwd_fns = {"dq": fa.flash_bwd_dq_cuda, "dkv": fa.flash_bwd_dkv_cuda}
+    before = {key: _variant_counts(fn) for key, fn in bwd_fns.items()}
     dq = dq_k()
     dk, dv = dkv_k()
     torch.cuda.synchronize()
+    bwd_variant = {key: _launched(before[key], fn)
+                   for key, fn in bwd_fns.items()}
+    # one writer per output, no atomics: a second call, the same bits
+    again = (dq_k(), *dkv_k())
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b)
+                        for a, b in zip((dq, dk, dv), again))
+    del again
     plain_f = lambda: fa.flash_attention_reference(  # noqa: E731
         q, k, v, causal, window)
     plain_dq = lambda: fa.flash_bwd_dq_reference(  # noqa: E731
@@ -479,15 +498,17 @@ def run_train_case(name, b, s, h, h_kv, d, causal, window, dtype_name):
     r_dk, r_dv = plain_dkv()
     errs["dk"], errs["dv"] = _errors(dk, r_dk), _errors(dv, r_dv)
     del r_dk, r_dv
-    ok = variant == {want: 1} and all(
-        math.isfinite(a) and a <= TOL[dtype_name] * top
-        and math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
-        for a, r, top in errs.values())
+    ok = (variant == {want: 1} and deterministic
+          and bwd_variant == {"dq": {want: 1}, "dkv": {want: 1}}
+          and all(math.isfinite(a) and a <= TOL[dtype_name] * top
+                  and math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
+                  for a, r, top in errs.values()))
     bounds, triples = _train_bounds(b, s, h, h_kv, d, causal, window,
                                     q.element_size(), dtype_name)
     rec = dict(case=name, shape=[b, s, h, h_kv, d], causal=causal,
                window=window, dtype=dtype_name, ok=ok, variant=want,
-               launched=variant, triples=triples,
+               launched=variant, bwd_launched=bwd_variant,
+               deterministic=deterministic, triples=triples,
                tol=TOL[dtype_name], row_tol=TRAIN_ROW_TOL[dtype_name],
                errors={key: dict(abs=a, row=r, abs_bound=TOL[dtype_name]
                                  * top) for key, (a, r, top) in errs.items()})
@@ -1038,26 +1059,29 @@ def phase_oracle():
 TRAIN_B, TRAIN_S, TRAIN_STEPS, PROFILE_STEPS = 8, 2048, 10, 2
 
 
-def _reset_train_counts():
+def _train_wrappers():
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
-        fn.launches = 0
-    fa.flash_fwd_cuda.sm90_launches = fa.flash_fwd_cuda.simt_launches = 0
+    return fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda
 
 
-TRAIN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_sm90",
-                "flash_fwd_simt")
+def _reset_train_counts():
+    for fn in _train_wrappers():
+        fn.launches = fn.sm90_launches = fn.simt_launches = 0
+
+
+TRAIN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "flash_fwd_sm90", "flash_fwd_simt",
+                "flash_bwd_dq_sm90", "flash_bwd_dq_simt",
+                "flash_bwd_dkv_sm90", "flash_bwd_dkv_simt")
 
 
 def _train_counts():
-    """Launches of (fwd, dq, dkv, the fwd's sm90 variant, its simt one)."""
-    from horovod_tpu_torch.ops import flash_attention as fa
-
-    fwd = fa.flash_fwd_cuda
-    return (fwd.launches, fa.flash_bwd_dq_cuda.launches,
-            fa.flash_bwd_dkv_cuda.launches, fwd.sm90_launches,
-            fwd.simt_launches)
+    """Launches of (fwd, dq, dkv), then each one's (sm90, simt)
+    variants, in TRAIN_COUNTS' order."""
+    fns = _train_wrappers()
+    return tuple(fn.launches for fn in fns) + tuple(
+        n for fn in fns for n in (fn.sm90_launches, fn.simt_launches))
 
 
 def phase_training():
@@ -1109,8 +1133,9 @@ def phase_training():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert all(math.isfinite(x) for x in losses), f"loss not finite: {losses}"
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    # every forward of the bf16 step is the sm90 variant
-    want = (cfg.num_layers,) * 4 + (0,)
+    # every forward, dq and dkv of the bf16 step is the sm90 variant
+    n = cfg.num_layers
+    want = (n, n, n) + (n, 0) * 3
     assert all(c == want for c in per_step), (
         f"kernel launches per step {per_step} != {want} "
         f"({', '.join(TRAIN_COUNTS)})")
@@ -1179,6 +1204,7 @@ def phase_training_oracle():
     toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, size=(2, 513)),
                            dtype=torch.long, device="cuda")
     grads = {}
+    _reset_train_counts()
     for impl in ("flash", "dot"):
         model = Transformer(dataclasses.replace(cfg, attention_impl=impl),
                             params={k: v.clone() for k, v in params.items()})
@@ -1186,6 +1212,11 @@ def phase_training_oracle():
                                               toks[:, 1:])
         loss.backward()
         grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+    launches = dict(zip(TRAIN_COUNTS, _train_counts()))
+    # fp32: the CUDA-core forward, dq and dkv, once per layer each
+    n = cfg.num_layers
+    want = dict(zip(TRAIN_COUNTS, (n, n, n) + (0, n) * 3))
+    assert launches == want, f"oracle launches {launches} != {want}"
     # fp32 on both sides; the kernels sum in another order than the dense
     # einsums, so each gradient agrees to rounding, far inside 1e-4 of
     # its largest entry
@@ -1194,10 +1225,11 @@ def phase_training_oracle():
                       / g.abs().max().clamp_min(1e-30))
                 for n, g in grads["dot"].items())
     log(f"  training oracle: {len(grads['dot'])} parameter gradients, flash "
-        f"vs dot: max |diff|/max|grad| = {worst:.3g} (tol {tol})")
+        f"vs dot: max |diff|/max|grad| = {worst:.3g} (tol {tol}); "
+        f"launches {json.dumps(launches)}")
     assert worst <= tol, "gradients through the kernels disagree"
     torch.cuda.empty_cache()
-    return worst
+    return dict(worst=worst, launches=launches)
 
 
 # -- phase 8: ResNet-50 data-parallel training at full width ------------------
@@ -1504,17 +1536,23 @@ def bn_entries(bn_kern, resnet):
     return entries
 
 
-def kernel_entries(kern, train_kern, serving, train):
+def kernel_entries(kern, train_kern, serving, train, train_oracle):
     """The ``kernels`` JSON line: one entry per kernel and C entry.  The
     forward has two: ``flash_fwd_sm90`` (its numbers at the training
     forward's shape, gpt_small bf16: the main path's) and
     ``flash_fwd_simt`` (at serving's decode shape, ``decode_gqa_bf16``:
-    its main path's).  ``launches`` come from the main paths' runs (the
-    forwards: the serving run's plus the training run's), the other
+    its main path's); dq and dkv two each: ``*_sm90`` at gpt_small's
+    bf16 backward (the training run's launches) and ``*_simt`` at
+    gpt_small's fp32 backward (the fp32 training oracle's launches, the
+    path that runs them).  ``launches`` come from the main paths' runs
+    (the forwards: the serving run's plus the training run's), the other
     numbers from the kernel phase; ``max_abs_err`` over every kernel-phase
-    case of that kernel; a phase left out by ``--phases`` leaves its
-    numbers null."""
+    case of that kernel and variant; a phase left out by ``--phases``
+    leaves its numbers null."""
     main = train_kern[0] if train_kern else None
+    at_case = {(r["case"], r["dtype"]): r for r in train_kern or ()}
+    bwd_at = {"sm90": at_case.get(("gpt_small_causal", "bfloat16")),
+              "simt": at_case.get(("gpt_small_causal", "float32"))}
     fwd_launches = {}
     for variant in ("sm90", "simt"):
         if serving or train:
@@ -1524,32 +1562,39 @@ def kernel_entries(kern, train_kern, serving, train):
     decode = next((r for r in kern or () if r["case"] == "decode_gqa_bf16"),
                   None)
     entries = []
-    for name, key, src, line in (
-            ("flash_fwd_sm90", "sm90", "flash_fwd_sm90.cu", 104),
-            ("flash_fwd_simt", "simt", "flash_fwd.cu", 104),
-            ("flash_bwd_dq", "dq", "flash_bwd.cu", 301),
-            ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 342)):
+    for name, key, variant, src, line in (
+            ("flash_fwd_sm90", "fwd", "sm90", "flash_fwd_sm90.cu", 104),
+            ("flash_fwd_simt", "fwd", "simt", "flash_fwd.cu", 104),
+            ("flash_bwd_dq_sm90", "dq", "sm90", "flash_bwd_sm90.cu", 301),
+            ("flash_bwd_dkv_sm90", "dkv", "sm90", "flash_bwd_sm90.cu", 342),
+            ("flash_bwd_dq_simt", "dq", "simt", "flash_bwd.cu", 301),
+            ("flash_bwd_dkv_simt", "dkv", "simt", "flash_bwd.cu", 342)):
+        if key == "fwd":
+            launches = fwd_launches.get(variant)
+        else:
+            run = train if variant == "sm90" else train_oracle
+            launches = run["launches"][name] if run else None
         e = dict(name=name, route="cuda",
                  source=f"horovod_tpu_torch/csrc/{src}",
                  replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
-                 launches=(fwd_launches.get(key) if key in ("sm90", "simt")
-                           else train["launches"][name] if train else None),
-                 max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
-                 bound_by=None, library_ms=None)
-        if key in ("sm90", "simt") and kern and train_kern:
+                 launches=launches, max_abs_err=None, ms=None,
+                 plain_ms=None, bound_ms=None, bound_by=None,
+                 library_ms=None)
+        at = None
+        if key == "fwd" and kern and train_kern:
             errs = [r["errors"][o]["abs"] for r in train_kern
-                    if r["variant"] == key for o in ("o", "lse")]
-            errs += [r["max_abs_err"] for r in kern if r["variant"] == key]
-            at = main["fwd"] if key == "sm90" else dict(
+                    if r["variant"] == variant for o in ("o", "lse")]
+            errs += [r["max_abs_err"] for r in kern
+                     if r["variant"] == variant]
+            at = main["fwd"] if variant == "sm90" else dict(
                 kernel_ms=decode["kernel_ms"], plain_ms=decode["plain_ms"],
                 bound_ms=decode["bound_ms"], bound_by=decode["bound_by"],
                 library_ms=decode["library_ms"])
-        elif main:
+        elif key != "fwd" and bwd_at[variant]:
             errs = [r["errors"][o]["abs"] for r in train_kern
+                    if r["variant"] == variant
                     for o in {"dq": ("dq",), "dkv": ("dk", "dv")}[key]]
-            at = main[key]
-        else:
-            at = None
+            at = bwd_at[variant][key]
         if at:
             e.update(max_abs_err=max(errs), ms=at["kernel_ms"],
                      plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -1593,9 +1638,11 @@ def main(argv=None) -> int:
         f"(nvcc {_build.build_seconds:.1f}s)")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("Used", "spill", "Performance",
+                                       "warning")):
                 log(f"  {name}: {line.strip()}")
     kern = train_kern = bn_kern = serving = train = resnet = None
+    train_oracle = None
     if "kernels" in phases:
         log("phase kernels:")
         kern = phase_kernels()
@@ -1612,14 +1659,15 @@ def main(argv=None) -> int:
         train = phase_training()
     if "training_oracle" in phases:
         log("phase training_oracle:")
-        phase_training_oracle()
+        train_oracle = phase_training_oracle()
     if "resnet" in phases:
         log("phase resnet:")
         resnet = phase_resnet()
     if "resnet_oracle" in phases:
         log("phase resnet_oracle:")
         phase_resnet_oracle()
-    entries = (kernel_entries(kern, train_kern, serving, train)
+    entries = (kernel_entries(kern, train_kern, serving, train,
+                              train_oracle)
                + bn_entries(bn_kern, resnet))
     log(card)
     log(json.dumps({"kernels": entries}))

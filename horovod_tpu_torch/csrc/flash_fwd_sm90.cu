@@ -44,14 +44,14 @@
 // a tile a product still reads.  Not done here: ping-pong between the two
 // warpgroups, setmaxnreg, clusters, persistent blocks.
 //
+// The barrier, TMA and wgmma helpers and the two product forms live in
+// flash_sm90.cuh, shared with the backward (flash_bwd_sm90.cu).
+//
 // Numerics: as _fwd_kernel, except that P is rounded to bf16 before P·V
 // (about 2^-8 of a row's largest output, inside the bf16 tolerances) and
 // the exponentials are exp2 of log2(e)-scaled scores.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -62,8 +62,6 @@ constexpr int kBQ = 64 * kConsumers;          // query rows per block
 constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kStages = 3;
-constexpr int kRow = 128;                     // bytes of a swizzled row
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
@@ -91,202 +89,6 @@ struct Params {
   float scale_log2;  // sm_scale * log2(e)
 };
 
-// -- barriers, TMA, wgmma ----------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1): start
-// address, leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most N of this warpgroup's committed groups are pending
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads and writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define HVD_D8(i)                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define HVD_D32 HVD_D8(0), HVD_D8(8), HVD_D8(16), HVD_D8(24)
-#define HVD_D64 HVD_D32, HVD_D8(32), HVD_D8(40), HVD_D8(48), HVD_D8(56)
-#define HVD_R32                                                           \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define HVD_R64                                                           \
-  HVD_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
-  "%58, %59, %60, %61, %62, %63"
-
-// d (64 x N fp32) = [d +] A·B, A and B K-major in shared memory
-template <int N> struct WgmmaSS;
-template <> struct WgmmaSS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HVD_R32
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : HVD_D32 : "l"(a), "l"(b), "r"(acc));
-  }
-};
-template <> struct WgmmaSS<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HVD_R64
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : HVD_D64 : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-// d (64 x N fp32) += A·B, A (64 x 16 bf16) from registers, B MN-major in
-// shared memory (transpose bit set)
-template <int N> struct WgmmaRS;
-template <> struct WgmmaRS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HVD_R32
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : HVD_D32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <> struct WgmmaRS<128> {
-  __device__ __forceinline__ static void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HVD_R64
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : HVD_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-// -- the two products of a tile ----------------------------------------------
-//
-// Accumulator fragment of a 64 x N fp32 wgmma tile (PTX ISA, wgmma D
-// fragments): warp w of the warpgroup holds rows 16w..16w+15; lane t holds
-// rows r0 = 16w + t/4 and r1 = r0 + 8, and for column block i (8 columns)
-// d[4i] , d[4i+1] = (r0, 8i + 2(t%4) + {0, 1}),
-// d[4i+2], d[4i+3] = (r1, 8i + 2(t%4) + {0, 1}).
-
-// start s (64 x BK) = Q·Kᵀ as one committed group: `q` the warpgroup's
-// first Q row in region 0, `k` the tile's region 0; regions `q_region` /
-// `k_region` bytes apart; each k16 step moves 32 bytes along a 128-byte
-// swizzled row
-template <int D, int BK>
-__device__ __forceinline__ void qk_start(float (&s)[BK / 2], uint32_t q,
-                                         uint32_t q_region, uint32_t k,
-                                         uint32_t k_region) {
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    const uint32_t off = (j % 4) * 32;
-    WgmmaSS<BK>::run(s, desc(q + (j / 4) * q_region + off, 16, 8 * kRow),
-                     desc(k + (j / 4) * k_region + off, 16, 8 * kRow), j);
-  }
-  wg_commit();
-}
-
-// start o (64 x D) += P·V as one committed group: p holds the bf16 A
-// fragments of P's k16 slices; `v` the tile's region 0 (keys are rows; a
-// k16 step is 16 rows further; the second 64-column region, at D = 128,
-// is the leading byte offset away)
-template <int D, int BK>
-__device__ __forceinline__ void pv_start(float (&o)[D / 2],
-                                         const uint32_t (&p)[BK / 16][4],
-                                         uint32_t v) {
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j)
-    WgmmaRS<D>::run(o, p[j], desc(v + j * 16 * kRow, BK * kRow, 8 * kRow));
-  wg_commit();
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the S accumulator's k16 slice j is P's A fragment for keys 16j..16j+15
-template <int BK>
-__device__ __forceinline__ void to_a_fragments(const float (&s)[BK / 2],
-                                               uint32_t (&p)[BK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      p[j][r] = pack_bf16(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
@@ -295,13 +97,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(kFull, x, 1);
   return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-// 2^x in one MUFU op (results below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax of one tile on the S accumulator fragment (raw
@@ -472,7 +267,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wait_full(t);
     pin(s);
     wg_fence();
-    qk_start<D, BK>(s, q_wg, L::kQRegion, stage(t), L::kKVRegion);
+    ss_start<D, BK>(s, q_wg, L::kQRegion, stage(t), L::kKVRegion);
     wg_wait<0>();
     pin(s);
     softmax_tile<BK>(s, pa, m, l, corr, edge(t), qw0 + r0,
@@ -483,8 +278,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       pin(s);
       pin(o);
       wg_fence();
-      qk_start<D, BK>(s, q_wg, L::kQRegion, stage(t), L::kKVRegion);
-      pv_start<D, BK>(o, pa, stage(prev) + L::kTileBytes);
+      ss_start<D, BK>(s, q_wg, L::kQRegion, stage(t), L::kKVRegion);
+      rs_start<D, BK>(o, pa, stage(prev) + L::kTileBytes, L::kKVRegion);
       wg_wait<1>();  // Q·Kᵀ done; P·V may still run
       pin(s);
       uint32_t pn[BK / 16][4];
@@ -504,7 +299,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     pin(o);
     wg_fence();
-    pv_start<D, BK>(o, pa, stage(prev) + L::kTileBytes);
+    rs_start<D, BK>(o, pa, stage(prev) + L::kTileBytes, L::kKVRegion);
     wg_wait<0>();
     pin(o);
     release(prev);
@@ -582,11 +377,11 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap ta,
     for (int e = 0; e < N / 2; ++e) d[e] = 0.f;
     pin(d);
     wg_fence();
-    pv_start<D, BK>(d, pa, b_s);
+    rs_start<D, BK>(d, pa, b_s, L::kKVRegion);
   } else {
     pin(d);
     wg_fence();
-    qk_start<D, BK>(d, a_s, 64 * kRow, b_s, L::kKVRegion);
+    ss_start<D, BK>(d, a_s, 64 * kRow, b_s, L::kKVRegion);
   }
   wg_wait<0>();
   pin(d);
@@ -598,44 +393,6 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap ta,
 }
 
 // -- host side ---------------------------------------------------------------
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
-  }
-  return fn;
-}
-
-// a bf16 (B, L, Hx, D) tensor with element strides (sb, sl, sh, 1) as a
-// 4-D tensor map of 64-column x `rows`-row boxes, 128-byte swizzle,
-// zeros past its edges
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int Lr, int Hx,
-                int D, long long sb, long long sl, long long sh, int rows) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Lr, (cuuint64_t)Hx,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2,
-                           (cuuint64_t)sb * 2};
-  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,

@@ -14,8 +14,12 @@ about that:
   query rows: ``sm90`` (wgmma + TMA on the tensor cores: bf16, D in
   {64, 128}, C > 4 — training forwards and prefill chunks) and ``simt``
   (the CUDA-core kernel: fp32, other head widths, decode);
-* ``csrc/flash_bwd.cu`` — ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the
-  backward of :func:`flash_attention`.
+* ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` —
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the backward of
+  :func:`flash_attention`.  Two variants, picked by :func:`_bwd_variant`
+  from dtype and head_dim: ``sm90`` (wgmma + TMA: bf16, D in {64, 128} —
+  the training path) and ``simt`` (the CUDA-core kernels: fp32, other
+  head widths).
 
 Beside each kernel, computing the same function in plain PyTorch:
 :func:`flash_chunk_attention_reference`, :func:`flash_attention_reference`,
@@ -28,9 +32,10 @@ plain version on the card.  :func:`_tile_mask`, :func:`_kb_range` and
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain versions, CUDA tensors launch the kernels (or raise).  Each
-kernel wrapper counts its launches in ``<wrapper>.launches``; the
-forward also per variant (``flash_fwd_cuda.sm90_launches``,
-``flash_fwd_cuda.simt_launches``).
+kernel wrapper counts its launches in ``<wrapper>.launches``, and per
+variant in ``<wrapper>.sm90_launches`` and ``<wrapper>.simt_launches``
+(:func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda`,
+:func:`flash_bwd_dkv_cuda`).
 """
 
 from __future__ import annotations
@@ -245,9 +250,16 @@ def _check_cuda(q, k, v, *extra):
     _group_of(q, k)
     if d % 8 or d > 256:
         raise ValueError(f"head_dim {d} must be a multiple of 8, <= 256")
+    _check_layout([(name, t) for name, t in tensors
+                   if t.dtype == q.dtype and t.dim() == 4])
+
+
+def _check_layout(tensors):
+    """Raise ``ValueError`` unless each (name, tensor) of ``tensors`` —
+    the 4-D tensors a kernel addresses, inputs and outputs — has a
+    contiguous last dim and 16-byte aligned rows (:func:`_check_aligned`).
+    Reads only pointers and strides: no device access."""
     for name, t in tensors:
-        if t.dtype != q.dtype or t.dim() != 4:
-            continue
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs a contiguous last dim, got "
                              f"strides {t.stride()}")
@@ -297,6 +309,17 @@ def _fwd_variant(dtype, d, c) -> str:
     return "simt"
 
 
+def _bwd_variant(dtype, d) -> str:
+    """Which backward kernels (dq and dkv alike) a CUDA launch takes, by
+    a fixed rule of dtype and head_dim: ``"sm90"``
+    (``csrc/flash_bwd_sm90.cu``, wgmma + TMA) for bf16 with D in
+    {64, 128} — the training path; ``"simt"`` (``csrc/flash_bwd.cu``,
+    CUDA cores) for fp32 and any other D."""
+    if dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
+
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _FWD_ARGS = {"hvd_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 12
@@ -308,10 +331,22 @@ _BWD_ARGS = {
     "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
     "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
 }
+_BWD_SM90_ARGS = {
+    "hvd_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _F, _P],
+    "hvd_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _F, _P],
+    "hvd_wgmma_bwd_tile": [_P, _P, _P, _I, _I, _P],
+}
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _count(wrapper, variant):
+    """One successful launch of ``wrapper``'s kernel in ``variant``."""
+    wrapper.launches += 1
+    setattr(wrapper, f"{variant}_launches",
+            getattr(wrapper, f"{variant}_launches") + 1)
 
 
 def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
@@ -355,11 +390,7 @@ def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], 0 if window is None else int(window),
             int(bool(causal)), 1.0 / math.sqrt(d), *tail, _stream(q)))
-    flash_fwd_cuda.launches += 1
-    if variant == "sm90":
-        flash_fwd_cuda.sm90_launches += 1
-    else:
-        flash_fwd_cuda.simt_launches += 1
+    _count(flash_fwd_cuda, variant)
     return (o, lse) if with_lse else o
 
 
@@ -381,23 +412,50 @@ def wgmma_tile_cuda(a, b, pv):
     if d not in _SM90_HEAD_DIMS or tuple(b.shape) != (bk, d) \
             or tuple(a.shape) != want_a:
         raise ValueError(f"tile shapes {tuple(a.shape)} {tuple(b.shape)}")
+    return _tile_product("flash_fwd_sm90.cu", _SM90_ARGS, "hvd_wgmma_tile",
+                         a, b, d if pv else bk, pv)
+
+
+def _tile_product(source, args, entry, a, b, cols, flag):
+    """Launch a one-tile product entry (``wgmma_tile_cuda``,
+    ``wgmma_bwd_tile_cuda``) on contiguous bf16 CUDA tiles a and b (D =
+    b's width); returns its (64, cols) fp32 output."""
     for name, t in (("a", a), ("b", b)):
         if t.device.type != "cuda" or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous bf16 CUDA tensor")
         _check_aligned(name, t.data_ptr(), t.stride()[:-1],
                        t.element_size())
-    out = torch.empty((64, d if pv else bk), dtype=torch.float32,
-                      device=a.device)
-    lib = _build.bound("flash_fwd_sm90.cu", _SM90_ARGS)
+    out = torch.empty((64, cols), dtype=torch.float32, device=a.device)
+    lib = _build.bound(source, args)
     with torch.cuda.device(a.device):
-        _build.launch(lib, "hvd_wgmma_tile", (
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), d, int(bool(pv)),
-            _stream(a)))
+        _build.launch(lib, entry, (
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), b.shape[1],
+            int(bool(flag)), _stream(a)))
     return out
 
 
+def wgmma_bwd_tile_cuda(a, b, rs):
+    """One tile product of the sm90 backward on one warpgroup, through
+    its own TMA loads, descriptors and ``wgmma`` (the card's unit tests):
+    ``rs=False``: a (64, D) · b (64, D)ᵀ, both operands K-major (S = Q·Kᵀ,
+    dP = dO·Vᵀ, Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ); ``rs=True``: a (64, 64) · b
+    (64, D), a from registers (rounded to bf16), b MN-major (dS·K, Pᵀ·dO,
+    dSᵀ·Q).  bf16, contiguous, D in {64, 128}.  Returns the fp32
+    product."""
+    d = b.shape[1]
+    want_a = (64, 64) if rs else (64, d)
+    if d not in _SM90_HEAD_DIMS or tuple(b.shape) != (64, d) \
+            or tuple(a.shape) != want_a:
+        raise ValueError(f"tile shapes {tuple(a.shape)} {tuple(b.shape)}")
+    return _tile_product("flash_bwd_sm90.cu", _BWD_SM90_ARGS,
+                         "hvd_wgmma_bwd_tile", a, b, d if rs else 64, rs)
+
+
 def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
+    """Check and launch one backward kernel, ``entry`` (``hvd_flash_bwd_
+    dq`` or ``hvd_flash_bwd_dkv``) in the variant :func:`_bwd_variant`
+    gives; ``outs`` the (name, tensor) outputs.  Returns the variant."""
     b, s, h, d = q.shape
     if k.shape[1] != s:
         raise ValueError(f"k length {k.shape[1]} != q length {s}")
@@ -406,8 +464,16 @@ def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match "
                          f"q {tuple(q.shape)} {q.dtype}")
     _check_stats(b, h, s, q.device, lse=lse, delta=delta)
-    strides = [x for t in (q, k, v, do) + outs for x in t.stride()[:3]]
-    lib = _build.bound("flash_bwd.cu", _BWD_ARGS)
+    _check_layout(outs)
+    outs = [t for _, t in outs]
+    strides = [x for t in [q, k, v, do] + outs for x in t.stride()[:3]]
+    variant = _bwd_variant(q.dtype, d)
+    if variant == "sm90":
+        lib = _build.bound("flash_bwd_sm90.cu", _BWD_SM90_ARGS)
+        entry, tail = entry + "_sm90", ()
+    else:
+        lib = _build.bound("flash_bwd.cu", _BWD_ARGS)
+        tail = (int(q.dtype == torch.bfloat16),)
     arr = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
         _build.launch(lib, entry, (
@@ -415,41 +481,50 @@ def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             b, s, h, k.shape[2], d, ctypes.addressof(arr),
             int(bool(causal)), 0 if window is None else int(window),
-            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q)))
+            1.0 / math.sqrt(d), *tail, _stream(q)))
+    return variant
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True, window=None):
-    """Launch the dq kernel (``csrc/flash_bwd.cu``) on CUDA tensors.
+    """Launch the dq kernel on CUDA tensors, in the variant
+    :func:`_bwd_variant` gives: ``csrc/flash_bwd_sm90.cu`` (bf16, D in
+    {64, 128}) or ``csrc/flash_bwd.cu`` (the rest).
 
     q, dO: (B, S, H, D); k, v: (B, S, H_kv, D); lse, delta: contiguous
     (B, H, S) fp32.  Same dtype and layout rules as :func:`flash_fwd_cuda`.
     Returns dQ (B, S, H, D) in q's dtype; ``flash_bwd_dq_cuda.launches``
-    counts successful launches."""
+    counts successful launches, ``.sm90_launches`` and ``.simt_launches``
+    those of each variant."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_cuda("hvd_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
-              window)
-    flash_bwd_dq_cuda.launches += 1
+    variant = _bwd_cuda("hvd_flash_bwd_dq", q, k, v, do, lse, delta,
+                        [("dQ", dq)], causal, window)
+    _count(flash_bwd_dq_cuda, variant)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.sm90_launches = 0
+flash_bwd_dq_cuda.simt_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
                        window=None):
-    """Launch the dkv kernel (``csrc/flash_bwd.cu``) on CUDA tensors (the
-    arguments of :func:`flash_bwd_dq_cuda`).  Returns (dK, dV), each
+    """Launch the dkv kernel on CUDA tensors (the arguments and variant
+    rule of :func:`flash_bwd_dq_cuda`).  Returns (dK, dV), each
     (B, S, H_kv, D) in k's dtype, the query-head group summed;
-    ``flash_bwd_dkv_cuda.launches`` counts successful launches."""
+    ``flash_bwd_dkv_cuda.launches`` counts successful launches,
+    ``.sm90_launches`` and ``.simt_launches`` those of each variant."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_cuda("hvd_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
-              window)
-    flash_bwd_dkv_cuda.launches += 1
+    variant = _bwd_cuda("hvd_flash_bwd_dkv", q, k, v, do, lse, delta,
+                        [("dK", dk), ("dV", dv)], causal, window)
+    _count(flash_bwd_dkv_cuda, variant)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.sm90_launches = 0
+flash_bwd_dkv_cuda.simt_launches = 0
 
 
 # -- entry points ------------------------------------------------------------

@@ -238,6 +238,108 @@ def test_flash_attention_backward_matches_plain_versions(dtype, tol, causal,
         assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rs", [False, True])
+def test_sm90_bwd_wgmma_tile_product_matches_matmul(d, rs):
+    """One 64-row tile product of the sm90 backward through its own TMA
+    loads, swizzled descriptors and wgmma: a (64, D) · b (64, D)ᵀ (S, dP,
+    Sᵀ, dPᵀ: both operands K-major) or a (64, 64) · b (64, D) (dS·K,
+    Pᵀ·dO, dSᵀ·Q: a from registers, b MN-major), against torch.matmul in
+    fp32 on the same bf16 inputs."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(10 * d + rs)
+    a = torch.randn((64, 64 if rs else d), generator=g,
+                    device="cuda").bfloat16()
+    b = torch.randn((64, d), generator=g, device="cuda").bfloat16()
+    got = tfa.wgmma_bwd_tile_cuda(a, b, rs)
+    want = a.float() @ (b.float() if rs else b.float().T)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def _train_errors(out, ref):
+    """chip_smoke.py's training-kernel measures (``_errors``): the
+    largest absolute error over max(1, largest |ref|), and the largest
+    per-row error relative to the row's largest |ref|, floored at 1e-2
+    of the tensor's."""
+    diff = (out.float() - ref.float()).abs()
+    refa = ref.float().abs()
+    top = float(refa.max())
+    rows = refa.amax(dim=-1).clamp_min(max(1e-2 * top, 1e-30))
+    return (float(diff.max()) / max(1.0, top),
+            float((diff.amax(dim=-1) / rows).max()))
+
+
+def _bwd_inputs(seed, b, s, h, h_kv, d, causal, window):
+    g = torch.Generator("cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device="cuda").bfloat16()
+    q, k, v, do = mk(b, s, h, d), mk(b, s, h_kv, d), mk(b, s, h_kv, d), \
+        mk(b, s, h, d)
+    out, lse = tfa.flash_forward(q, k, v, causal, window)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window,h_kv", [
+    (True, None, 8), (False, None, 2), (True, 100, 2), (False, 100, 8)])
+def test_sm90_bwd_matches_plain_versions(seed, d, causal, window, h_kv):
+    """dq and dkv through the sm90 variant on a ragged S = 333 (the
+    tiles past S masked, lse/δ reads bounded), GQA 8/8 and 8/2, causal,
+    bidirectional and windows, against the plain versions (bf16: 2e-2 of
+    max(1, largest |output|), 1e-2 per row, as chip_smoke.py holds
+    them).  Several seeds: a stage released early would fail only
+    sometimes."""
+    _need_card()
+    q, k, v, do, lse, delta = _bwd_inputs(seed, 2, 333, 8, h_kv, d, causal,
+                                          window)
+    before = (tfa.flash_bwd_dq_cuda.sm90_launches,
+              tfa.flash_bwd_dkv_cuda.sm90_launches)
+    kw = dict(causal=causal, window=window)
+    dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq_cuda.sm90_launches,
+            tfa.flash_bwd_dkv_cuda.sm90_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref_dq = tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                        window)
+    ref_dk, ref_dv = tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal, window)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err, row = _train_errors(got, want)
+        assert err <= 2e-2 and row <= 1e-2, (err, row)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_bwd_is_bitwise_deterministic(d):
+    """One writer per output, no atomics: two calls give the same bits."""
+    _need_card()
+    q, k, v, do, lse, delta = _bwd_inputs(3, 2, 700, 8, 2, d, True, None)
+    first = (tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+             *tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+    second = (tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+              *tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_sm90_bwd_refuses_a_misaligned_dout():
+    _need_card()
+    q, k, v, do, lse, delta = _bwd_inputs(4, 1, 128, 4, 4, 64, True, None)
+    buf = torch.empty(do.numel() + 8, dtype=do.dtype, device="cuda")
+    bad = buf[1:1 + do.numel()].view(do.shape)
+    bad.copy_(do)
+    with pytest.raises(ValueError, match="dO needs a 16-byte aligned"):
+        tfa.flash_bwd_dq_cuda(q, k, v, bad, lse, delta)
+
+
 def test_transformer_grads_on_card_match_cpu():
     """The same fp32 weights and batch through the flash transformer on
     the card (the kernels) and on the CPU (the plain versions): every
