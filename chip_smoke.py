@@ -19,11 +19,17 @@ if any fails:
    serving cases' kernel time is device time, calls enqueued behind a
    spin kernel, with the host-inclusive call time beside it: the small
    cases' kernels are shorter than the wrapper's host work):
-   - the paged forward (serving): decode and chunk cases (llama3_8b
-     heads 32/8 at D=128, an MHA case at D=64, a windowed case with
-     nonzero ``kv_start``, decode pad slots and chunk rows placed before
-     their first key, which must come back exactly zero with the -1e30
-     log-sum-exp sentinel; bf16 and fp32);
+   - the paged forward (serving): decode and chunk cases over gathered
+     K/V (llama3_8b heads 32/8 at D=128, an MHA case at D=64, a windowed
+     case with nonzero ``kv_start``, decode pad slots and chunk rows
+     placed before their first key, which must come back exactly zero
+     with the -1e30 log-sum-exp sentinel; bf16 and fp32);
+   - the paged decode (serving's decode steps, ``csrc/flash_decode.cu``):
+     the decode shapes read through block tables of 16-token pages
+     scattered in a pool twice the live size (GQA bf16 and fp32, MHA
+     D=64, a window of 256, pad rows exactly zero), each also giving the
+     same bits on a second call, timed beside SDPA on the
+     already-gathered K/V and beside the gather plus SDPA;
    - the training kernels — the uniform-offset forward (out and lse),
      dQ, and dK/dV: gpt_small's shape (B=8, S=2048, 12 heads of 64; the
      main path's), llama3_8b's attention (32/8 heads, D=128, S=4096,
@@ -48,13 +54,15 @@ if any fails:
      and the card's bound;
 4. serving: ``ServingEngine`` over llama3_8b at full width (32 layers,
    bf16, random weights from a seeded generator on the card) serves two
-   waves of requests; every request must complete, the forward must
-   have launched exactly 32 times per engine step (the sm90 variant on
-   mixed steps, the simt one on decode steps), the second wave must hit
-   the prefix cache, and each first token's logits must match a dense
-   cache-free forward;
+   waves of requests; every request must complete, every mixed step
+   must launch the sm90 forward and every decode step the paged decode
+   kernel exactly 32 times (once per layer; no CUDA-core forward), the
+   second wave must hit the prefix cache, and each first token's logits
+   must match a dense cache-free forward; then a profiled wave (device
+   time by kernel class) and 8 profiled decode steps alone;
 5. oracle: llama3_8b width, 2 layers, fp32 — greedy streams through the
-   engine must equal one-at-a-time plain decode (tie-aware);
+   engine (the CUDA-core forward on mixed steps, the paged decode on
+   decode steps) must equal one-at-a-time plain decode (tie-aware);
 6. training: gpt_small at full width and depth (B=8, S=2048, bf16
    compute over fp32 masters, AdamW 1e-3 at optax's defaults) through
    ``init()`` (world 1 over NCCL), ``replicate_state`` and
@@ -87,9 +95,11 @@ launch counts set to 0 just before it and read just after.  The card's
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
 numbers from the kernel phase at the main path's shape — the sm90
-forward at gpt_small's training forward, the simt one at serving's
-decode, the sm90 dq and dkv at gpt_small's bf16 backward, the simt ones
-at gpt_small's fp32 backward (their path: the fp32 training oracle),
+forward at gpt_small's training forward, the simt one at llama3_8b's
+gathered decode (its launches: the fp32 oracles, its path), the paged
+decode at serving's decode, the sm90 dq and dkv at gpt_small's bf16
+backward, the simt ones at gpt_small's fp32 backward (their path: the
+fp32 training oracle),
 the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
 null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -323,6 +333,136 @@ def run_case(case):
     return rec
 
 
+def make_paged_case(name, *, b, h, h_kv, d, dtype, kv_lens, bs=16,
+                    window=None, layer=1):
+    """A decode step's paged inputs: two layers of pools (``layer`` is
+    read) holding twice the live pages, each row's pages scattered over
+    the pool by a seeded shuffle (block 0, the trash block, pads the
+    tables), tables as wide as the longest row's pages (the page tier)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    need = [-(-max(n, 0) // bs) for n in kv_lens]
+    width = max(need)
+    n_blocks = 1 + 2 * sum(need)
+    shape = (2, n_blocks, bs, h_kv, d)
+    kp = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    vp = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    ids = torch.randperm(n_blocks - 1,
+                         generator=torch.Generator().manual_seed(SEED)) + 1
+    tables = torch.zeros((b, width), dtype=torch.long)
+    used = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = ids[used:used + n]
+        used += n
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(dtype)
+    return dict(name=name, q=q, k_pool=kp, v_pool=vp, tables=tables.cuda(),
+                kv_lens=torch.tensor(kv_lens, dtype=torch.int32,
+                                     device="cuda"),
+                layer=layer, window=window, max_pages=width)
+
+
+def paged_bound_ms(case):
+    """Least time on the card for a paged decode: bytes are q and o once,
+    each visible K/V row once per kv head and each live table entry
+    once; FLOPs 4*D per visible (query head, key) pair."""
+    q, kp = case["q"], case["k_pool"]
+    b, _, h, d = q.shape
+    bs, h_kv, el = kp.shape[2], kp.shape[3], q.element_size()
+    cap = case["max_pages"] * bs
+    keys = pages = 0
+    for n in case["kv_lens"].tolist():
+        lo = 0 if case["window"] is None else max(0, n - case["window"])
+        hi = min(n, cap)
+        if hi > lo:
+            keys += hi - lo
+            pages += (hi - 1) // bs - lo // bs + 1
+    nbytes = 2 * b * h * d * el + 2 * keys * h_kv * d * el + 8 * pages
+    flops = 4 * d * (h // h_kv) * h_kv * keys
+    peak = PEAK_FLOPS[str(q.dtype).split(".")[-1]]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def run_paged_case(case):
+    """The paged decode kernel against its plain version (the gather then
+    the dense reference) on the card: errors, the same bits on a second
+    call, exact zeros for pad rows, its time beside the bound, the plain
+    version's and two library yardsticks (timed only): SDPA on the
+    already-gathered K/V, and the gather plus SDPA (device time, as the
+    kernel's)."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    q, kp, vp, tables, kv = (case[k] for k in (
+        "q", "k_pool", "v_pool", "tables", "kv_lens"))
+    kw = dict(layer=case["layer"], window=case["window"],
+              max_pages=case["max_pages"])
+    b, _, h, d = q.shape
+    call = lambda: fa.flash_decode_paged(  # noqa: E731
+        q, kp, vp, tables, kv, **kw)
+    plain = lambda: fa.flash_decode_paged_reference(  # noqa: E731
+        q, kp, vp, tables, kv, **kw)
+    before = fa.flash_decode_paged.launches
+    fwd_before = _variant_counts()
+    out, again = call(), call()
+    torch.cuda.synchronize()
+    launched = fa.flash_decode_paged.launches - before
+    same = bool(torch.equal(out, again))
+    ref = plain()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    scale = ref.float().abs().amax(dim=-1).clamp_min(1e-30)
+    row_err = float((diff.amax(dim=-1) / scale).max())
+    dtype = str(q.dtype).split(".")[-1]
+    ok = (math.isfinite(err) and err <= TOL[dtype]
+          and math.isfinite(row_err) and row_err <= ROW_TOL[dtype]
+          and launched == 2 and not _launched(fwd_before) and same)
+    pad = kv <= 0
+    if bool(pad.any()):
+        zero = bool((out[pad] == 0).all())
+        ok = ok and zero
+        log(f"  {case['name']}: {int(pad.sum())} pad rows exactly zero "
+            f"{zero}")
+    bnd, by = paged_bound_ms(case)
+    layer, window, width = kw["layer"], kw["window"], kw["max_pages"]
+
+    def gather():
+        gk, gv, start = fa.gather_pages(kp[layer], vp[layer], tables, kv - 1,
+                                        window=window, max_pages=width)
+        pos = start.long()[:, None] + torch.arange(gk.shape[1],
+                                                   device="cuda")[None]
+        vis = pos < kv.long()[:, None]
+        if window is not None:
+            vis &= pos >= kv.long()[:, None] - window
+        return (gk.transpose(1, 2).contiguous(),
+                gv.transpose(1, 2).contiguous(), vis[:, None, None])
+
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt, am = gather()
+    sdpa = lambda k_, v_, m_: F.scaled_dot_product_attention(  # noqa: E731
+        qt, k_, v_, attn_mask=m_, enable_gqa=True)
+    try:  # device time, as the kernel's
+        lib_ms = device_ms(lambda: sdpa(kt, vt, am))
+        lib_gather_ms = device_ms(lambda: sdpa(*gather()))
+    except Exception as e:  # an SDPA without enable_gqa: no yardstick
+        log(f"  {case['name']}: library call unavailable ({e!r})")
+        lib_ms = lib_gather_ms = None
+    rec = dict(case=case["name"], kernel="flash_decode_paged",
+               shape=[b, h, kp.shape[3], d, kp.shape[2], width],
+               kv_lens=kv.tolist(), window=window, dtype=dtype,
+               variant="paged", launched=launched, same_bits=same,
+               max_abs_err=err, tol=TOL[dtype], max_row_rel_err=row_err,
+               row_tol=ROW_TOL[dtype], ok=ok, kernel_ms=device_ms(call),
+               call_ms=cuda_ms(call), plain_ms=cuda_ms(plain, reps=3),
+               library_ms=lib_ms, library_gather_ms=lib_gather_ms,
+               bound_ms=bnd, bound_by=by)
+    log("  " + json.dumps(rec))
+    return rec
+
+
 def phase_kernels():
     import torch
 
@@ -372,6 +512,24 @@ def phase_kernels():
     recs = []
     for case in cases:
         recs.append(run_case(case))
+        del case
+        torch.cuda.empty_cache()
+    # the paged decode (serving's decode steps): the shapes above, read
+    # through block tables of 16-token pages scattered in a larger pool
+    paged = [make_paged_case(f"decode_paged_gqa_{tag}", b=8, h=32, h_kv=8,
+                             d=128, dtype=dt, kv_lens=ctx)
+             for dt, tag in ((bf, "bf16"), (f32, "fp32"))]
+    paged.append(make_paged_case(
+        "decode_paged_mha_d64_bf16", b=8, h=32, h_kv=32, d=64, dtype=bf,
+        kv_lens=[min(x, 2048) for x in ctx]))
+    paged.append(make_paged_case(
+        "decode_paged_window_bf16", b=8, h=32, h_kv=8, d=128, dtype=bf,
+        kv_lens=ctx, window=256))
+    paged.append(make_paged_case(
+        "decode_paged_pad_rows_bf16", b=8, h=32, h_kv=8, d=128, dtype=bf,
+        kv_lens=pad_lens))
+    for case in paged:
+        recs.append(run_paged_case(case))
         del case
         torch.cuda.empty_cache()
     bad = [r["case"] for r in recs if not r["ok"]]
@@ -846,8 +1004,10 @@ def phase_serving():
     prompts = {}
     torch.cuda.reset_peak_memory_stats()
     since = trace.now()
-    fwd = fa.flash_fwd_cuda
+    fwd, dec = fa.flash_fwd_cuda, fa.flash_decode_paged
+    per_step = _count_step_launches(eng)
     fwd.launches = fwd.sm90_launches = fwd.simt_launches = 0
+    dec.launches = 0
     steps0 = eng.steps
     t_run = time.perf_counter()
     for p in wave1:
@@ -858,26 +1018,32 @@ def phase_serving():
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
+    del eng._decode_step, eng._mixed_step  # the counting wrappers
     launches = fwd.launches
     by_variant = {"sm90": fwd.sm90_launches, "simt": fwd.simt_launches}
+    paged = dec.launches
     steps = eng.steps - steps0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert sorted(out) == sorted(prompts), "not every request completed"
     assert all(len(out[r]) == 32 for r in prompts), "short stream"
-    assert launches == cfg.num_layers * steps, (
-        f"kernel launches {launches} != {cfg.num_layers} x {steps} steps")
-    # mixed steps (chunks of >= 32 columns) run the sm90 forward, decode
-    # steps the CUDA-core one: one launch per layer each
+    assert launches + paged == cfg.num_layers * steps, (
+        f"attention launches {launches} + {paged} != {cfg.num_layers} x "
+        f"{steps} steps")
+    # every mixed step (chunks of >= 32 columns) runs the sm90 forward and
+    # every decode step the paged decode kernel, once per layer; no step
+    # runs the CUDA-core forward
     kinds = [args["kind"] for site, _t, _d, args, _tid
              in trace.snapshot(since) if site == "serve.step" and args]
     step_kinds = {k: kinds.count(k) for k in ("mixed", "decode")}
     assert sum(step_kinds.values()) == steps, (kinds, steps)
     assert step_kinds["mixed"] > 0 and step_kinds["decode"] > 0, step_kinds
-    want = {"sm90": cfg.num_layers * step_kinds["mixed"],
-            "simt": cfg.num_layers * step_kinds["decode"]}
-    assert by_variant == want, (
-        f"forward launches by variant {by_variant} != {want} "
-        f"(mixed steps -> sm90, decode steps -> simt)")
+    assert [k for k, *_ in per_step] == kinds, (per_step, kinds)
+    n = cfg.num_layers
+    want = {"mixed": (0, n, 0), "decode": (n, 0, 0)}
+    wrong = [(k, c) for k, *c in per_step if tuple(c) != want[k]]
+    assert not wrong, (
+        f"steps whose (paged decode, sm90, simt) launches differ from "
+        f"{want}: {wrong[:4]}")
     hits = eng.scheduler.prefix_hit_blocks
     assert hits > 0, "the second wave hit no cached prefix block"
     # first-token logits against a dense, cache-free forward (bf16)
@@ -900,7 +1066,8 @@ def phase_serving():
            in trace.snapshot(since)
            if site == "serve.step" and args and args["kind"] == "decode"]
     rec = dict(requests=len(out), steps=steps, launches=launches,
-               launches_by_variant=by_variant, step_kinds=step_kinds,
+               launches_by_variant=by_variant, paged_decode_launches=paged,
+               step_kinds=step_kinds,
                prefix_hit_blocks=hits, evictions=eng.scheduler.evictions,
                prefill_tokens_computed=eng.prefill_tokens_computed,
                ttft_p50_s=ttft[len(ttft) // 2], tokens=gen, wall_s=wall,
@@ -910,14 +1077,38 @@ def phase_serving():
                                     / sum(d for _, d in dec)),
                pool_gb=eng.pool_bytes / 1e9, peak_mem_gb=peak_gb)
     log("  serving: " + json.dumps(rec))
-    profile_wave(eng, list(prompts.values()))
+    rec["profile"] = profile_wave(eng, list(prompts.values()))
     del eng
     torch.cuda.empty_cache()
     return rec
 
 
+def _count_step_launches(eng):
+    """Wrap ``eng``'s two step functions (instance attributes, removed by
+    ``del``) so that each step appends (kind, paged decode launches, sm90
+    forward launches, simt forward launches) to the returned list."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    fwd, dec, steps = fa.flash_fwd_cuda, fa.flash_decode_paged, []
+
+    def counted(fn, kind):
+        def step(*a, **kw):
+            before = (dec.launches, fwd.sm90_launches, fwd.simt_launches)
+            out = fn(*a, **kw)
+            now = (dec.launches, fwd.sm90_launches, fwd.simt_launches)
+            steps.append((kind, *(x - y for x, y in zip(now, before))))
+            return out
+        return step
+
+    eng._decode_step = counted(eng._decode_step, "decode")
+    eng._mixed_step = counted(eng._mixed_step, "mixed")
+    return steps
+
+
 def _kernel_class(name):
     n = name.lower()
+    if "flash_decode" in n:
+        return "attention_decode_kernel"
     if "flash_fwd" in n:
         return "attention_fwd_kernel"
     if "flash_bwd" in n:
@@ -960,6 +1151,9 @@ def _device_breakdown(prof, wall, steps, classify=None):
         kernels_per_step=len(kernels) / max(1, steps))
 
 
+DECODE_PROFILE_STEPS = 8
+
+
 def profile_wave(eng, prompts):
     """Where the time goes: resubmit ``prompts`` (their full blocks are
     cached by now) under torch.profiler; device time by kernel class,
@@ -996,6 +1190,33 @@ def profile_wave(eng, prompts):
         step_count={k: len(v) for k, v in kinds.items()},
         top_host_self_ms_calls={k: [round(ms, 3), n] for k, ms, n in host})
     log("  profile: " + json.dumps(rec))
+    # decode steps alone: the prompts once more, stepped past their
+    # prefill, then DECODE_PROFILE_STEPS decode steps under the profiler
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    sched = eng.scheduler
+    while sched.pending or not all(s.in_decode for s in sched.running):
+        eng.step()
+    torch.cuda.synchronize()
+    steps0 = eng.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dec = _device_breakdown(prof, wall, eng.steps - steps0)
+    n = max(1, dec["steps"])
+    dec.update(
+        batch=len(sched.running),
+        device_ms_per_step=sum(dec["device_ms_by_class"].values()) / n,
+        device_ms_per_step_by_class={
+            k: v / n for k, v in dec["device_ms_by_class"].items()},
+        wall_ms_per_step=wall * 1e3 / n)
+    log("  decode-step profile: " + json.dumps(dec))
+    eng.run()
+    rec["decode_step"] = dec
     return rec
 
 
@@ -1014,6 +1235,7 @@ def phase_oracle():
     import numpy as np
     import torch
     from horovod_tpu_torch.models import init_params, llama3_8b
+    from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.serving import ServeConfig, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1028,8 +1250,19 @@ def phase_oracle():
     prompts = [rs.randint(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in (5, 23, 40, 61)]
     n_new = 12
+    fwd, dec = fa.flash_fwd_cuda, fa.flash_decode_paged
+    fwd.launches = fwd.sm90_launches = fwd.simt_launches = 0
+    dec.launches = 0
     ids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
     out = eng.run()
+    # fp32: mixed steps through the CUDA-core forward, decode steps
+    # through the paged decode kernel
+    launches = {"flash_decode_paged": dec.launches,
+                "flash_fwd_simt": fwd.simt_launches,
+                "flash_fwd_sm90": fwd.sm90_launches}
+    assert launches["flash_decode_paged"] > 0 \
+        and launches["flash_fwd_simt"] > 0 \
+        and launches["flash_fwd_sm90"] == 0, launches
     compared = 0
     with torch.inference_mode():
         for rid, p in zip(ids, prompts):
@@ -1047,11 +1280,12 @@ def phase_oracle():
                     f"!= reference {t}")
                 compared += 1
                 toks.append(t)
-    log(f"  oracle: {compared}/{len(ids) * n_new} tokens compared, all equal")
+    log(f"  oracle: {compared}/{len(ids) * n_new} tokens compared, all "
+        f"equal; launches {json.dumps(launches)}")
     assert compared >= len(ids) * n_new // 2, "too few tokens compared"
     del eng
     torch.cuda.empty_cache()
-    return compared
+    return dict(compared=compared, launches=launches)
 
 
 # -- phase 6: data-parallel training of gpt_small at full width --------------
@@ -1536,29 +1770,32 @@ def bn_entries(bn_kern, resnet):
     return entries
 
 
-def kernel_entries(kern, train_kern, serving, train, train_oracle):
+def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle):
     """The ``kernels`` JSON line: one entry per kernel and C entry.  The
     forward has two: ``flash_fwd_sm90`` (its numbers at the training
     forward's shape, gpt_small bf16: the main path's) and
-    ``flash_fwd_simt`` (at serving's decode shape, ``decode_gqa_bf16``:
-    its main path's); dq and dkv two each: ``*_sm90`` at gpt_small's
+    ``flash_fwd_simt`` (at llama3_8b's gathered decode,
+    ``decode_gqa_bf16``); dq and dkv two each: ``*_sm90`` at gpt_small's
     bf16 backward (the training run's launches) and ``*_simt`` at
-    gpt_small's fp32 backward (the fp32 training oracle's launches, the
-    path that runs them).  ``launches`` come from the main paths' runs
-    (the forwards: the serving run's plus the training run's), the other
-    numbers from the kernel phase; ``max_abs_err`` over every kernel-phase
-    case of that kernel and variant; a phase left out by ``--phases``
-    leaves its numbers null."""
+    gpt_small's fp32 backward; ``flash_decode_paged`` at
+    ``decode_paged_gqa_bf16`` (serving's launches).  ``launches`` come
+    from the main paths' runs (the forwards: serving's plus training's;
+    the simt kernels' from the fp32 oracles, the paths that run them),
+    the other numbers from the kernel phase; ``max_abs_err`` over every
+    kernel-phase case of that kernel and variant; a phase left out by
+    ``--phases`` leaves its numbers null."""
     main = train_kern[0] if train_kern else None
     at_case = {(r["case"], r["dtype"]): r for r in train_kern or ()}
     bwd_at = {"sm90": at_case.get(("gpt_small_causal", "bfloat16")),
               "simt": at_case.get(("gpt_small_causal", "float32"))}
     fwd_launches = {}
     for variant in ("sm90", "simt"):
-        if serving or train:
-            fwd_launches[variant] = (
-                (serving["launches_by_variant"][variant] if serving else 0)
-                + (train["launches"][f"flash_fwd_{variant}"] if train else 0))
+        runs = [(serving or {}).get("launches_by_variant", {}).get(variant),
+                *((r or {}).get("launches", {}).get(f"flash_fwd_{variant}")
+                  for r in (train, train_oracle if variant == "simt" else None,
+                            oracle if variant == "simt" else None))]
+        if any(n is not None for n in runs):
+            fwd_launches[variant] = sum(n or 0 for n in runs)
     decode = next((r for r in kern or () if r["case"] == "decode_gqa_bf16"),
                   None)
     entries = []
@@ -1600,6 +1837,23 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle):
                      plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
                      bound_by=at["bound_by"], library_ms=at["library_ms"])
         entries.append(e)
+    # the paged decode: serving's decode steps; its numbers at
+    # decode_paged_gqa_bf16, library = SDPA on the already-gathered K/V
+    e = dict(name="flash_decode_paged", route="cuda",
+             source="horovod_tpu_torch/csrc/flash_decode.cu",
+             replaces="horovod_tpu/ops/flash_attention.py:104",
+             launches=serving["paged_decode_launches"] if serving else None,
+             max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+             bound_by=None, library_ms=None)
+    paged = [r for r in kern or () if r.get("kernel") == "flash_decode_paged"]
+    at = next((r for r in paged if r["case"] == "decode_paged_gqa_bf16"),
+              None)
+    if at:
+        e.update(max_abs_err=max(r["max_abs_err"] for r in paged),
+                 ms=at["kernel_ms"], plain_ms=at["plain_ms"],
+                 bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+                 library_ms=at["library_ms"])
+    entries.append(e)
     return entries
 
 
@@ -1651,9 +1905,10 @@ def main(argv=None) -> int:
     if "serving" in phases:
         log("phase serving:")
         serving = phase_serving()
+    oracle = None
     if "oracle" in phases:
         log("phase oracle:")
-        phase_oracle()
+        oracle = phase_oracle()
     if "training" in phases:
         log("phase training:")
         train = phase_training()
@@ -1667,7 +1922,7 @@ def main(argv=None) -> int:
         log("phase resnet_oracle:")
         phase_resnet_oracle()
     entries = (kernel_entries(kern, train_kern, serving, train,
-                              train_oracle)
+                              train_oracle, oracle)
                + bn_entries(bn_kern, resnet))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -37,7 +37,7 @@ from torch import nn
 
 from ..common.device import resolve_device
 from ..ops.flash_attention import (
-    flash_attention, flash_chunk_attention, flash_decode_attention,
+    flash_attention, flash_chunk_attention, flash_decode_paged,
 )
 
 _NORM_EPS = 1e-5
@@ -230,7 +230,8 @@ class Attention(nn.Module):
         if paged is not None:
             # serving path: chunk mode writes each row's chunk at its own
             # offset then attends the gathered pages with per-row global
-            # offsets; decode writes the one new token then attends
+            # offsets; decode writes the one new token then attends the
+            # pages in place, through the block tables
             if cfg.attention_impl not in ("dot", "flash"):
                 raise ValueError(
                     f"paged serving supports attention_impl 'dot'/'flash', "
@@ -246,10 +247,10 @@ class Attention(nn.Module):
                     kv_start=kv_start)
             else:
                 paged.write_decode(layer, k, v)
-                gk, gv, kv_start = paged.gather(layer, window=cfg.window)
-                out = flash_decode_attention(
-                    q, gk, gv, paged.lens + 1, window=cfg.window,
-                    kv_start=kv_start)
+                out = flash_decode_paged(
+                    q, paged.k, paged.v, paged.tables, paged.lens + 1,
+                    layer=layer, window=cfg.window,
+                    max_pages=paged.gather_pages)
         elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=cfg.causal,
                                   window=cfg.window)

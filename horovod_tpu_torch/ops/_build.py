@@ -33,8 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: the kernel sources this package builds (one library each); each may
 #: include the shared headers (``csrc/*.cuh``)
-SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu",
-           "flash_bwd_sm90.cu", "fused_norm.cu")
+SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_decode.cu",
+           "flash_bwd.cu", "flash_bwd_sm90.cu", "fused_norm.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

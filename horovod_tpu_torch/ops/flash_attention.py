@@ -13,7 +13,12 @@ about that:
   variants, picked by :func:`_fwd_variant` from dtype, head_dim and
   query rows: ``sm90`` (wgmma + TMA on the tensor cores: bf16, D in
   {64, 128}, C > 4 — training forwards and prefill chunks) and ``simt``
-  (the CUDA-core kernel: fp32, other head widths, decode);
+  (the CUDA-core kernel: fp32, other head widths, gathered decode);
+* ``csrc/flash_decode.cu`` — the same ``_fwd_kernel``'s decode launch
+  as serving runs it (:func:`flash_decode_paged`): one query row per
+  sequence, K/V read through the block table from the paged pools (no
+  gather), a GQA group per block, the key range split across blocks and
+  merged in split order;
 * ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` —
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the backward of
   :func:`flash_attention`.  Two variants, picked by :func:`_bwd_variant`
@@ -23,7 +28,9 @@ about that:
 
 Beside each kernel, computing the same function in plain PyTorch:
 :func:`flash_chunk_attention_reference`, :func:`flash_attention_reference`,
-:func:`flash_bwd_dq_reference` and :func:`flash_bwd_dkv_reference`
+:func:`flash_decode_paged_reference` (:func:`gather_pages`, then the
+chunk reference), :func:`flash_bwd_dq_reference` and
+:func:`flash_bwd_dkv_reference`
 (dense fp32 logits, the same mask, masked entries zeroed).  The CPU path
 and the tests use them; ``chip_smoke.py`` holds each kernel against its
 plain version on the card.  :func:`_tile_mask`, :func:`_kb_range` and
@@ -35,7 +42,8 @@ the plain versions, CUDA tensors launch the kernels (or raise).  Each
 kernel wrapper counts its launches in ``<wrapper>.launches``, and per
 variant in ``<wrapper>.sm90_launches`` and ``<wrapper>.simt_launches``
 (:func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda`,
-:func:`flash_bwd_dkv_cuda`).
+:func:`flash_bwd_dkv_cuda`); the paged decode in
+``flash_decode_paged.launches``.
 """
 
 from __future__ import annotations
@@ -164,6 +172,55 @@ def flash_chunk_attention_reference(q, k, v, q_starts, *, window=None,
     mask = _tile_mask(q_pos, k_pos, True, window, s_k,
                       offs.long()[:, None, None])[:, None]  # (B,1,C,S)
     return _masked_attention(q, k, v, mask)[0]
+
+
+def gather_pages(k, v, tables, lens, *, window=None, q_span=1,
+                 max_pages=None):
+    """Gather each sequence's pages of one layer's pools contiguous
+    (``horovod_tpu/serving/kv_cache.py::PagedKVState.gather``).
+
+    k, v: (num_blocks, block_size, H_kv, D); tables: (B, max_blocks)
+    int64 block tables; lens: (B,) tokens written before this step.
+    Only the first ``max_pages`` table columns are read (default all).
+    Without ``window`` those columns are gathered; with one, only the
+    trailing pages that can hold the window (widened by ``q_span - 1``
+    for chunks) plus a page of alignment slack.  Returns (k, v,
+    kv_start): k/v (B, n_pages * block_size, H_kv, D) and kv_start (B,)
+    int32, the global position of each gathered row 0."""
+    bs = k.shape[1]
+    b, width = tables.shape
+    n_cols = width if max_pages is None else min(int(max_pages), width)
+    if window is None:
+        tbl = tables[:, :n_cols] if n_cols < width else tables
+        kv_start = torch.zeros((b,), dtype=torch.int32, device=lens.device)
+    else:
+        n_win = min(n_cols, (window + q_span - 1) // bs + 2)
+        first = torch.clamp(
+            torch.div(lens.long() + 1 - window, bs, rounding_mode="floor"),
+            0, n_cols - n_win)
+        idx = first[:, None] + torch.arange(n_win, device=first.device)
+        tbl = tables.gather(1, idx)
+        kv_start = (first * bs).to(torch.int32)
+    n = tbl.shape[1]
+    h_kv, d = k.shape[2], k.shape[3]
+    return (k[tbl].reshape(b, n * bs, h_kv, d),
+            v[tbl].reshape(b, n * bs, h_kv, d), kv_start)
+
+
+def flash_decode_paged_reference(q, k_pool, v_pool, tables, kv_lens, *,
+                                 layer, window=None, max_pages=None):
+    """Plain PyTorch version of :func:`flash_decode_paged`: the pages
+    gathered through the tables as serving's gather does
+    (:func:`gather_pages`), then :func:`flash_chunk_attention_reference`
+    for the one query at ``kv_lens - 1``.  Same arguments and output as
+    the kernel's entry."""
+    lens = torch.as_tensor(kv_lens, dtype=torch.int32,
+                           device=q.device).reshape(q.shape[0]) - 1
+    gk, gv, kv_start = gather_pages(
+        k_pool[layer], v_pool[layer], tables, lens, window=window,
+        max_pages=max_pages)
+    return flash_chunk_attention_reference(q, gk, gv, lens, window=window,
+                                           kv_start=kv_start)
 
 
 def _self_mask(s, causal, window, device):
@@ -527,6 +584,121 @@ flash_bwd_dkv_cuda.sm90_launches = 0
 flash_bwd_dkv_cuda.simt_launches = 0
 
 
+# -- the paged decode kernel (csrc/flash_decode.cu) ---------------------------
+
+#: SMs of an H100 SXM, and the blocks the split plan aims for on each:
+#: several, so that rows of very different lengths even out
+_SMS, _BLOCKS_PER_SM = 132, 4
+#: fewest keys worth a split of their own (a shorter split's fixed cost,
+#: its first copy's latency and its partials, outweighs its keys), and
+#: most table columns one split holds (its page ids sit in shared memory)
+_MIN_SPLIT_KEYS, _MAX_SPLIT_PAGES = 256, 4096
+_DECODE_ARGS = {"hvd_flash_decode_paged": [_P] * 8 + [_I] * 10
+                + [_P, _F, _I, _P]}
+
+
+def _decode_rows_per_block(group) -> int:
+    """Query rows one decode block holds: the GQA group rounded up to 1,
+    2, 4 or 8 (a wider group takes ``ceil(group / 8)`` blocks) — the
+    kernel's own rule (``flash_decode.cu::launch_t``)."""
+    return 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
+
+
+def _decode_page_bound(n_cols, block_size, window) -> int:
+    """Most table columns one row's live keys can span: all ``n_cols``
+    without a window; with one, the pages ``window`` consecutive
+    positions can touch."""
+    if window is None:
+        return n_cols
+    return min(n_cols, (window + block_size - 2) // block_size + 1)
+
+
+def _decode_split_plan(blocks, page_bound, block_size):
+    """``(nsplit, pps)``: how many blocks share one row's key range, and
+    the table columns each owns, from the blocks a split launches
+    (``B * H_kv * ceil(group / rows)``) and the step's page bound — host
+    integers only, no device lengths.  Enough splits that the grid holds
+    ``_BLOCKS_PER_SM`` blocks per SM, none shorter than
+    ``_MIN_SPLIT_KEYS`` keys or longer than ``_MAX_SPLIT_PAGES`` columns,
+    and none that would own no column."""
+    want = -(-_SMS * _BLOCKS_PER_SM // max(1, blocks))
+    most = -(-page_bound * block_size // _MIN_SPLIT_KEYS)
+    nsplit = max(1, min(want, most), -(-page_bound // _MAX_SPLIT_PAGES))
+    pps = -(-page_bound // nsplit)
+    return -(-page_bound // pps), pps
+
+
+def _decode_split_keys(split, pps, kv_len, block_size, window, n_cols):
+    """``(k0, k1)``: the key positions split ``split`` of a row reads
+    (``k0 == k1``: none).  The row's live keys are ``[lo, hi)`` — ``lo =
+    kv_len - window`` (0 without a window), ``hi = kv_len`` capped at
+    ``n_cols`` pages — and split s owns the ``pps`` table columns from
+    ``lo // block_size + s * pps``: the kernel's ``split_keys``."""
+    hi = min(kv_len, n_cols * block_size)
+    lo = 0 if window is None else max(0, kv_len - window)
+    if lo >= hi:
+        return 0, 0
+    p0 = lo // block_size + split * pps
+    k0, k1 = max(lo, p0 * block_size), min(hi, (p0 + pps) * block_size)
+    return (k0, k1) if k0 < k1 else (0, 0)
+
+
+def _decode_paged_cuda(q, k_pool, v_pool, tables, kv_lens, layer, window,
+                       max_pages):
+    """Check and launch ``csrc/flash_decode.cu`` (and its merge kernel
+    when the key range is split); returns o (B, 1, H, D)."""
+    b, _, h, d = q.shape
+    kp, vp = k_pool[layer], v_pool[layer]
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {q.device}")
+    for name, t, dtype in (("k_pool", k_pool, q.dtype),
+                           ("v_pool", v_pool, q.dtype),
+                           ("tables", tables, torch.int64),
+                           ("kv_lens", kv_lens, torch.int32)):
+        if t.device != q.device or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {q.device}, got "
+                             f"{t.dtype} on {t.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dtype {q.dtype} not supported (bf16 or fp32)")
+    if kp.shape[3] != d or d % 8 or d > 256:
+        raise ValueError(f"head_dim {d} (pools {kp.shape[3]}) must match "
+                         f"and be a multiple of 8, <= 256")
+    if tables.stride(1) != 1:
+        raise ValueError("tables needs a contiguous last dim")
+    if tuple(kv_lens.shape) != (b,) or not kv_lens.is_contiguous():
+        raise ValueError("kv_lens must be a contiguous (B,) int32 tensor")
+    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    _check_layout([("q", q), ("k_pool", kp), ("v_pool", vp), ("o", o)])
+    num_blocks, bs, h_kv = kp.shape[0], kp.shape[1], kp.shape[2]
+    group = h // h_kv
+    n_cols = tables.shape[1] if max_pages is None \
+        else min(int(max_pages), tables.shape[1])
+    blocks = b * h_kv * -(-group // _decode_rows_per_block(group))
+    nsplit, pps = _decode_split_plan(
+        blocks, _decode_page_bound(n_cols, bs, window), bs)
+    part_acc = part_ml = None
+    if nsplit > 1:
+        part_acc = torch.empty((b * h * nsplit, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b * h * nsplit, 2), dtype=torch.float32,
+                              device=q.device)
+    strides = [q.stride(0), q.stride(2), *kp.stride()[:3], *vp.stride()[:3],
+               o.stride(0), o.stride(2), tables.stride(0)]
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    lib = _build.bound("flash_decode.cu", _DECODE_ARGS)
+    with torch.cuda.device(q.device):
+        _build.launch(lib, "hvd_flash_decode_paged", (
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            tables.data_ptr(), kv_lens.data_ptr(),
+            b, h, h_kv, d, bs, n_cols, num_blocks,
+            0 if window is None else int(window), nsplit, pps,
+            ctypes.addressof(arr), 1.0 / math.sqrt(d),
+            int(q.dtype == torch.bfloat16), _stream(q)))
+    return o
+
+
 # -- entry points ------------------------------------------------------------
 
 
@@ -572,6 +744,58 @@ def flash_decode_attention(q, k, v, kv_lens, *, window=None, kv_start=None):
                               device=q.device).reshape(b)
     return flash_chunk_attention(q, k, v, kv_lens - 1, window=window,
                                  kv_start=kv_start)
+
+
+def flash_decode_paged(q, k_pool, v_pool, tables, kv_lens, *, layer,
+                       window=None, max_pages=None):
+    """Single-token decode attention read straight from the paged KV
+    pools: what :func:`flash_decode_attention` computes on the pages
+    :func:`gather_pages` would gather, without the gather.
+
+    q: (B, 1, H, D); k_pool, v_pool: (num_layers, num_blocks,
+    block_size, H_kv, D) with ``H_kv | H``, of which ``layer`` is read;
+    tables: (B, max_blocks) int64 block tables; kv_lens: (B,) int32 —
+    row b's query sits at global position ``kv_lens[b] - 1`` and attends
+    keys ``0 .. kv_lens[b] - 1`` (the last ``window`` of them with a
+    window), rows with ``kv_lens <= 0`` come back all-zero.  Only the
+    first ``max_pages`` table columns are read (the step's page bound;
+    default all).
+
+    Output: (B, 1, H, D) in q's dtype.  CPU tensors run the plain
+    version (:func:`flash_decode_paged_reference`); CUDA tensors launch
+    ``csrc/flash_decode.cu`` (bf16 or fp32, D a multiple of 8 up to 256,
+    16-byte aligned rows) or raise.  ``flash_decode_paged.launches``
+    counts successful launches."""
+    b, s_q = q.shape[0], q.shape[1]
+    if s_q != 1:
+        raise ValueError(f"decode expects q_len=1, got {s_q}")
+    if k_pool.dim() != 5 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"pools must be two equal 5-D shapes, got "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    if not 0 <= layer < k_pool.shape[0]:
+        raise ValueError(f"layer {layer} outside the pools' "
+                         f"{k_pool.shape[0]} layers")
+    _group_of(q, k_pool[layer])
+    if tables.dim() != 2 or tables.shape[0] != b:
+        raise ValueError(f"tables must be (B={b}, max_blocks), got "
+                         f"{tuple(tables.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if max_pages is not None and max_pages < 1:
+        raise ValueError(f"max_pages must be >= 1, got {max_pages}")
+    kv_lens = torch.as_tensor(kv_lens, dtype=torch.int32,
+                              device=q.device).reshape(b)
+    if q.device.type == "cpu":
+        return flash_decode_paged_reference(
+            q, k_pool, v_pool, tables, kv_lens, layer=layer, window=window,
+            max_pages=max_pages)
+    out = _decode_paged_cuda(q, k_pool, v_pool, tables, kv_lens, layer,
+                             window, max_pages)
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
 
 
 def flash_forward(q, k, v, causal=True, window=None):

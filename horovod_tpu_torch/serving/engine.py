@@ -8,8 +8,9 @@ program families over *padding tiers* —
   (Sarathi-style chunked prefill: a chunk at offset k is just another
   batch row of the per-row-offset attention kernel), keyed by (batch
   tier, chunk tier);
-* a DECODE step, keyed by (batch tier, page tier): the unwindowed gather
-  copy is bounded by the batch's live max-context page tier.
+* a DECODE step, keyed by (batch tier, page tier): the decode kernel
+  reads the pools in place through the block tables, no further than the
+  batch's live max-context page tier.
 
 Every attention call of either family runs the hand-written kernel of
 ``ops/flash_attention.py`` once per layer.  PyTorch runs eagerly, so the
@@ -430,7 +431,7 @@ class ServingEngine:
     def _decode_once(self, seqs: List[Sequence]):
         """One decode step over ``seqs`` (the newest token's K/V is
         written by THIS step, at position length - 1); the unwindowed
-        gather is bounded by the batch's live page tier."""
+        decode reads no further than the batch's live page tier."""
         bt = self._batch_tier(len(seqs))
         cache_lens = [s.length - 1 for s in seqs]
         pages = self.max_blocks_per_seq

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..common.device import resolve_device
+from ..ops.flash_attention import gather_pages as _gather_pages
 
 
 def blocks_for(length: int, block_size: int) -> int:
@@ -248,8 +249,9 @@ class PagedKVState:
     (the trash block).  ``lens``: (B,) int32 tokens already written per
     sequence BEFORE this step; pad slots carry 0.  ``mode``: 'decode' |
     'chunk' (the mixed step: row i writes/attends ``chunk_lens[i]`` new
-    tokens from its own offset ``lens[i]``).  ``gather_pages`` bounds the
-    unwindowed :meth:`gather` copy (the engine's live page tier).
+    tokens from its own offset ``lens[i]``).  ``gather_pages`` is the
+    step's page bound (the engine's live page tier): it bounds the
+    unwindowed :meth:`gather` copy and the pages a decode step reads.
     """
 
     k: torch.Tensor
@@ -299,33 +301,19 @@ class PagedKVState:
 
     def gather(self, layer: int, window: Optional[int] = None,
                q_span: int = 1):
-        """Gather each sequence's pages contiguous for the kernel:
+        """Gather each sequence's pages contiguous for the chunk kernel
+        (:func:`~horovod_tpu_torch.ops.flash_attention.gather_pages`):
         returns (k, v, kv_start) with k/v (B, n_blocks*block_size, H_kv,
         D) and kv_start (B,) int32, the global position of each gathered
         row 0.  With ``window`` only the trailing pages that can hold the
         window (widened by ``q_span - 1`` for chunks) are gathered;
-        without, ``gather_pages`` bounds the copy."""
-        bs = self.block_size
-        b = self.tables.shape[0]
-        if window is None:
-            n = self.gather_pages or self.max_blocks
-            tbl = self.tables[:, :n] if n < self.max_blocks else self.tables
-            kv_start = torch.zeros((b,), dtype=torch.int32,
-                                   device=self.lens.device)
-        else:
-            n_win = min(self.max_blocks, (window + q_span - 1) // bs + 2)
-            first = torch.clamp(
-                torch.div(self.lens.long() + 1 - window, bs,
-                          rounding_mode="floor"),
-                0, self.max_blocks - n_win)
-            idx = first[:, None] + torch.arange(n_win, device=first.device)
-            tbl = self.tables.gather(1, idx)
-            kv_start = (first * bs).to(torch.int32)
-        n = tbl.shape[1]
-        h_kv, d = self.k.shape[3], self.k.shape[4]
-        gk = self.k[layer][tbl].reshape(b, n * bs, h_kv, d)
-        gv = self.v[layer][tbl].reshape(b, n * bs, h_kv, d)
-        return gk, gv, kv_start
+        without, ``gather_pages`` bounds the copy.  Decode steps read the
+        pools in place instead (``flash_decode_paged``)."""
+        return _gather_pages(
+            self.k[layer], self.v[layer], self.tables, self.lens,
+            window=window, q_span=q_span,
+            max_pages=(self.gather_pages or None) if window is None
+            else None)
 
 
 def make_pools(num_layers: int, num_blocks: int, block_size: int,

@@ -175,8 +175,9 @@ def test_sm90_refuses_a_misaligned_view():
 
 def test_engine_on_card_matches_engine_on_cpu():
     """The same fp32 weights and requests through the engine on the card
-    (the kernel) and on the CPU (the plain version): identical greedy
-    streams, one kernel launch per layer per step."""
+    (the kernels) and on the CPU (the plain versions): identical greedy
+    streams, one attention kernel launch per layer per step (the forward
+    on mixed steps, the paged decode on decode steps)."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TransformerConfig(vocab_size=211, num_layers=2, num_heads=4,
@@ -191,13 +192,81 @@ def test_engine_on_card_matches_engine_on_cpu():
         eng = ServingEngine(cfg, params, device=device, serve=ServeConfig(
             block_size=8, decode_tiers=(1, 2, 4), prefill_chunk=16))
         before = tfa.flash_fwd_cuda.launches
+        paged = tfa.flash_decode_paged.launches
         ids = [eng.submit(p, max_new_tokens=12) for p in prompts]
         res = eng.run()
         outs.append([res[i].tolist() for i in ids])
         if device == "cuda":
-            assert tfa.flash_fwd_cuda.launches - before == \
+            paged = tfa.flash_decode_paged.launches - paged
+            assert paged > 0
+            assert tfa.flash_fwd_cuda.launches - before + paged == \
                 cfg.num_layers * eng.steps
     assert outs[0] == outs[1]
+
+
+def _paged_inputs(seed, h, h_kv, d, bs, kv_lens, dtype):
+    """q, two layers of pools holding twice the live pages, and block
+    tables whose page ids are a seeded shuffle (on the card)."""
+    g = torch.Generator().manual_seed(seed)
+    need = [-(-max(n, 0) // bs) for n in kv_lens]
+    n_blocks = 1 + 2 * sum(need)
+    kp, vp = (torch.randn((2, n_blocks, bs, h_kv, d), generator=g)
+              for _ in range(2))
+    ids = torch.randperm(n_blocks - 1, generator=g) + 1
+    tables = torch.zeros((len(kv_lens), max(need) + 2), dtype=torch.long)
+    used = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = ids[used:used + n]
+        used += n
+    q = torch.randn((len(kv_lens), 1, h, d), generator=g)
+    return (q.to("cuda", dtype), kp.to("cuda", dtype), vp.to("cuda", dtype),
+            tables.cuda(), torch.tensor(kv_lens, dtype=torch.int32,
+                                        device="cuda"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,h_kv,d,bs,window", [
+    (8, 2, 64, 16, None), (4, 4, 128, 8, None), (9, 3, 72, 5, None),
+    (24, 2, 256, 16, None), (12, 2, 8, 1, None), (8, 2, 64, 16, 3),
+    (8, 2, 64, 16, 40), (32, 8, 128, 16, 256)])
+def test_paged_decode_matches_plain_version(dtype, tol, h, h_kv, d, bs,
+                                            window):
+    """The paged decode kernel against its plain version (the gather
+    then the dense reference): GQA groups of 1 to 12 (rows per block 1,
+    4 and 8, and two blocks for a group of 12), head widths 8 to 256,
+    pages of 1 to 16 tokens, windows inside one page and over many; pad
+    rows exactly zero; the same bits on a second call."""
+    _need_card()
+    kv_lens = [0, 1, 3 * bs, 37, 300, 1000]
+    q, kp, vp, tables, kv = _paged_inputs(h + d + bs, h, h_kv, d, bs,
+                                          kv_lens, dtype)
+    kw = dict(layer=1, window=window, max_pages=tables.shape[1] - 1)
+    before = tfa.flash_decode_paged.launches
+    out = tfa.flash_decode_paged(q, kp, vp, tables, kv, **kw)
+    again = tfa.flash_decode_paged(q, kp, vp, tables, kv, **kw)
+    ref = tfa.flash_decode_paged_reference(q, kp, vp, tables, kv, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_decode_paged.launches == before + 2
+    assert torch.equal(out, again)
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert bool((out[kv <= 0] == 0).all())
+
+
+def test_paged_decode_refuses_what_the_kernel_does_not_take():
+    """Misaligned pools, int32 tables or an fp16 query raise before any
+    launch; nothing falls back to the gathered path."""
+    _need_card()
+    q, kp, vp, tables, kv = _paged_inputs(0, 8, 2, 64, 16, [5, 40],
+                                          torch.bfloat16)
+    flat = torch.zeros(kp.numel() + 8, dtype=kp.dtype, device="cuda")
+    odd = flat[1:1 + kp.numel()].view(kp.shape)
+    before = tfa.flash_decode_paged.launches
+    for args in ((q, odd, odd, tables, kv), (q, kp, vp, tables.int(), kv),
+                 (q.half(), kp.half(), vp.half(), tables, kv)):
+        with pytest.raises((ValueError, TypeError)):
+            tfa.flash_decode_paged(*args, layer=0)
+    assert tfa.flash_decode_paged.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

@@ -34,11 +34,16 @@ SHAPES = {"gpt_small": (8, 2048, 12, 12, 64),
           "llama3_8b": (1, 4096, 32, 8, 128)}
 
 
-def build(variants, work):
+def build(variants, work, source="flash_bwd_sm90.cu", entries=None):
+    """Compile each variant of ``csrc/<source>`` (``{name: [sed edit,
+    ...]}``) into its own library under ``work``; returns ``{name:
+    CDLL}`` with ``entries``' signatures set (default: the sm90
+    backward's)."""
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    src = os.path.join(_build.CSRC, "flash_bwd_sm90.cu")
+    entries = entries or fa._BWD_SM90_ARGS
+    src = os.path.join(_build.CSRC, source)
     procs = {}
     for name, edits in variants.items():
         d = os.path.join(work, name)
@@ -61,9 +66,11 @@ def build(variants, work):
                     or "C75" in line:
                 print(f"  {name}: {line.strip()[:160]}")
         lib = ctypes.CDLL(os.path.join(work, name, "k.so"))
-        for entry, args in fa._BWD_SM90_ARGS.items():
+        for entry, args in entries.items():
             getattr(lib, entry).argtypes = args
             getattr(lib, entry).restype = ctypes.c_int
+        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
         libs[name] = lib
     return libs
 
