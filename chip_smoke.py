@@ -49,9 +49,15 @@ if any fails:
      site through the sync-BN ``process_group`` seam over a world-1
      NCCL group (bit-equal to the op without one); each kernel against
      the plain version of its own step on every output (y, mean, var,
-     dβ, dγ, dx, dres), with its time, the plain version's, the
-     library's train-mode BN composite (forward, backward; timed only)
-     and the card's bound;
+     dβ, dγ, dx, dres; the stats kernel's rstd, scale and shift against
+     its own mean and var), with a verdict per kernel, its time, the
+     plain version's, the library's train-mode BN composite (forward,
+     backward; timed only) and the card's bound; the stats kernel also
+     gives the same bits on a second call, is timed beside
+     ``torch.var_mean`` (its function in one call) and ``x.sum()`` (a
+     plain streaming read of the same bytes), and 50 of its launches
+     back to back over six shapes each give their shape's first bits
+     (its column-tile counters are reset by every launch);
 4. serving: ``ServingEngine`` over llama3_8b at full width (32 layers,
    bf16, random weights from a seeded generator on the card) serves two
    waves of requests; every request must complete, every mixed step
@@ -84,7 +90,8 @@ if any fails:
    finite and the last below the first, exactly 53 launches of each
    fused-norm kernel per step; images/s, MFU by bench.py's FLOP count,
    peak memory, then the device busy share and time by kernel class
-   over 2 profiled steps;
+   over 2 profiled steps, with 5 fused-norm device kernels a site
+   (stats 1, apply 1, backward reduce 2, dx 1: 265 a step);
 9. resnet_oracle: ResNet-50 width, stage depths [1, 1, 1, 1], batch 4
    of 64x64, fp32 with TF32 off — every parameter gradient and running
    statistic on the card (the kernels) against the CPU (plain versions).
@@ -720,19 +727,27 @@ def phase_train_kernels():
 
 EPS = 1e-5
 # kernel vs plain on the fused-norm outputs.  mean and var: the two sides
-# sum up to 1.6 M fp32 terms in different orders (the kernels in chains
-# of at most ~350: a thread's rows, a block's row threads, the partials'
-# slices; the plain version in torch's tree), and var = E[x²] − mean²
-# cancels, so |Δmean| is held to 1e-4·sqrt(E[x²]) and |Δvar| to
-# 2e-4·E[x²] per channel (fp32 rounding over a 350-term chain is
-# ≤ 350·2⁻²⁴ ≈ 2.1e-5 of the terms' mass).  dβ and dγ likewise to 1e-4
-# of their terms' mass Σ|dy′| and Σ|dy′·x̂|.  y and dx: per channel,
-# the largest error relative to that channel's largest |plain value|
-# ≤ 1e-2 in bf16 (one rounding step is ≤ 2⁻⁷ of a value) and 1e-4 in
-# fp32, and the absolute error ≤ TOL·max(1, largest |value|).  dres is
-# dy′ cast to x's dtype on both sides: exactly equal.
+# sum up to 1.6 M fp32 terms in different orders (the stats kernel in
+# sequential chains of at most 500 terms, its host plan's limit: a
+# thread's rows, at most 381 at ResNet-50's sites, then pairwise trees of
+# depth <= 8 over a block's row threads, strided slices of at most 17
+# partials and a pairwise tree over the slices; the backward reduce in
+# chains of at most ~350: a thread's rows, a block's row threads, the
+# partials' slices; the plain version in torch's tree), and
+# var = E[x²] − mean² cancels, so |Δmean| is held to 1e-4·sqrt(E[x²])
+# and |Δvar| to 2e-4·E[x²] per channel (fp32 rounding over a 500-term
+# chain is ≤ 500·2⁻²⁴ ≈ 3.0e-5 of the terms' mass).  dβ and dγ likewise
+# to 1e-4 of their terms' mass Σ|dy′| and Σ|dy′·x̂|.  y and dx: per
+# channel, the largest error relative to that channel's largest |plain
+# value| ≤ 1e-2 in bf16 (one rounding step is ≤ 2⁻⁷ of a value) and
+# 1e-4 in fp32, and the absolute error ≤ TOL·max(1, largest |value|).
+# dres is dy′ cast to x's dtype on both sides: exactly equal.  The stats
+# kernel's finalize (rstd, scale, shift from its own mean and var):
+# rstd within BN_RSTD_TOL of torch.rsqrt(var + eps) (rsqrtf's 2 ulp on
+# either side), scale and shift bit-equal to γ·rstd and β − mean·scale.
 BN_STAT_TOL = {"mean": 1e-4, "var": 2e-4, "dbeta": 1e-4, "dgamma": 1e-4}
 BN_COL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+BN_RSTD_TOL = 4.8e-7  # 4 ulp of fp32, relative
 BN_KERNELS = ("stats", "apply", "bwd_reduce", "dx")
 
 
@@ -793,10 +808,14 @@ def _col_err(out, ref):
 def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
                 misalign=False):
     """One fused-norm case: each kernel against the plain version of its
-    own step on the same inputs (the backward on the kernel forward's
-    y, mean and rstd, so a ReLU mask is the same on both sides), the
-    kernel, plain and library times, and the bounds.  ``misalign``: x
-    starts one element past a 16-byte boundary (the scalar path)."""
+    own step on the same inputs (apply on the kernel's mean and rstd,
+    the backward on the kernel forward's y, mean and rstd, so a ReLU
+    mask is the same on both sides), a verdict per kernel, the stats
+    kernel's bits on a second call, the kernel, plain and library times,
+    and the bounds; beside the stats kernel, ``torch.var_mean`` (its own
+    function in one call) and ``x.sum()`` (a plain streaming read of the
+    same bytes).  ``misalign``: x starts one element past a 16-byte
+    boundary (the scalar path)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import fused_norm as fn
@@ -824,21 +843,22 @@ def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
                                     sums, m, relu, res),
     }
     stats = k["stats"]()
+    stats_same_bits = bool(torch.equal(stats, k["stats"]()))
     y = k["apply"]()
     sums = k["bwd_reduce"]()
     dx, dres = k["dx"]()
     torch.cuda.synchronize()
     plain = {
         "stats": lambda: fn.bn_stats_reference(x, EPS),
-        "apply": lambda: fn.bn_apply_reference(x, gamma, beta, p_mean,
-                                               p_rstd, r, relu),
+        "apply": lambda: fn.bn_apply_reference(x, gamma, beta, stats[0],
+                                               stats[2], r, relu),
         "bwd_reduce": lambda: fn.bn_bwd_reduce_reference(
             x, dy, y, stats[0], stats[2], relu),
         "dx": lambda: fn.bn_dx_reference(x, dy, y, gamma, stats[0],
                                          stats[2], sums[0], sums[1], m,
                                          relu, res),
     }
-    p_mean, p_var, p_rstd = plain["stats"]()
+    p_mean, p_var, _ = plain["stats"]()
     xf = x.float()
     ex2 = (xf * xf).sum(0) / m
     # (largest |diff|, largest |diff| relative to its scale) per output
@@ -846,6 +866,12 @@ def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
                             float((d / scale.clamp_min(1e-30)).max()))
     errs = {"mean": rel((stats[0] - p_mean).abs(), ex2.sqrt()),
             "var": rel((stats[1] - p_var).abs(), ex2)}
+    rstd_ref = torch.rsqrt(stats[1] + EPS)
+    scale_ref = gamma * stats[2]
+    finalize_ok = bool(
+        ((stats[2] - rstd_ref).abs() <= BN_RSTD_TOL * rstd_ref).all()
+        and torch.equal(stats[3], scale_ref)
+        and torch.equal(stats[4], beta - stats[0] * scale_ref))
     y_ref = plain["apply"]()
     errs["y"] = _col_err(y, y_ref)
     del y_ref, xf
@@ -861,15 +887,23 @@ def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
     dres_equal = (dres is None and dres_ref is None) or bool(
         torch.equal(dres, dres_ref))
     del dx_ref, dres_ref
-    ok = dres_equal and all(
-        math.isfinite(errs[key][1]) and errs[key][1] <= tol
-        for key, tol in BN_STAT_TOL.items()) and all(
-        math.isfinite(a) and a <= TOL[dtype_name] * top
-        and col <= BN_COL_TOL[dtype_name]
-        for a, col, top in (errs["y"], errs["dx"]))
+    stat_ok = lambda key: (math.isfinite(errs[key][1])  # noqa: E731
+                           and errs[key][1] <= BN_STAT_TOL[key])
+    col_ok = lambda key: (math.isfinite(errs[key][0])  # noqa: E731
+                          and errs[key][0] <= TOL[dtype_name] * errs[key][2]
+                          and errs[key][1] <= BN_COL_TOL[dtype_name])
+    ok_by_kernel = {
+        "stats": (stat_ok("mean") and stat_ok("var") and finalize_ok
+                  and stats_same_bits),
+        "apply": col_ok("y"),
+        "bwd_reduce": stat_ok("dbeta") and stat_ok("dgamma"),
+        "dx": col_ok("dx") and dres_equal}
     rec = dict(case=name, m=m, c=c, relu=relu, residual=res,
-               dtype=dtype_name, sites=count, ok=ok, dres_equal=dres_equal,
-               tol=dict(BN_STAT_TOL, col=BN_COL_TOL[dtype_name]),
+               dtype=dtype_name, sites=count, ok=all(ok_by_kernel.values()),
+               ok_by_kernel=ok_by_kernel, dres_equal=dres_equal,
+               finalize_ok=finalize_ok, stats_same_bits=stats_same_bits,
+               tol=dict(BN_STAT_TOL, col=BN_COL_TOL[dtype_name],
+                        rstd=BN_RSTD_TOL),
                errors={key: (dict(abs=v[0], col=v[1],
                                   abs_bound=TOL[dtype_name] * v[2])
                              if len(v) == 3 else dict(abs=v[0], rel=v[1]))
@@ -893,7 +927,9 @@ def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
     # device time of each kernel wrapper, plain version and library call;
     # the wrapper's call time on the host's clock beside it
     times = [device_ms(f) for f in [k[key] for key in BN_KERNELS]
-             + [plain[key] for key in BN_KERNELS] + [lib_fwd, lib_bwd]]
+             + [plain[key] for key in BN_KERNELS] + [lib_fwd, lib_bwd]
+             + [lambda: torch.var_mean(x, dim=0, correction=0),
+                lambda: x.sum()]]
     del o_lib
     bounds = _bn_bounds(m, c, x.element_size(), int(relu), int(res))
     for i, key in enumerate(BN_KERNELS):
@@ -902,7 +938,9 @@ def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
                         plain_ms=times[4 + i], bound_ms=bnd, bound_by=by,
                         bound_bytes_ms=bounds[key][0],
                         bound_ops_ms=bounds[key][1])
-    rec["library_fwd_ms"], rec["library_bwd_ms"] = times[8:]
+    rec["library_fwd_ms"], rec["library_bwd_ms"] = times[8:10]
+    rec["stats"].update(of_bound=rec["stats"]["bound_ms"] / times[0],
+                        var_mean_ms=times[10], sum_ms=times[11])
     rec["library_call"] = ("relu(" if relu else "") + "batch_norm(x)" + (
         " + res" if res else "") + (")" if relu else "")
     if group is not None:
@@ -924,10 +962,69 @@ def run_bn_case(name, m, c, relu, res, dtype_name, count=1, group=None,
     return rec
 
 
+BN_RESET_LAUNCHES = 50
+
+
+def bn_stats_counter_check():
+    """BN_RESET_LAUNCHES stats launches back to back, round-robin over
+    six shapes (1 to 32 column tiles, the vector and scalar paths, both
+    dtypes, M = 1), each bit-equal to its shape's first call: a launch
+    finds its tiles' counters at 0 only if the last block of every
+    earlier launch reset them."""
+    import torch
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    shapes = [(401_408, 64, "bfloat16"), (6_272, 2048, "bfloat16"),
+              (25_088, 256, "bfloat16"), (100_352, 512, "float32"),
+              (4_099, 100, "bfloat16"), (1, 1, "float32")]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    inputs, first = [], []
+    for m, c, dtype_name in shapes:
+        x = torch.randn((m, c), generator=g, device="cuda")
+        inputs.append((x.to(getattr(torch, dtype_name)),
+                       torch.rand((c,), generator=g, device="cuda") + 0.5,
+                       torch.randn((c,), generator=g, device="cuda")))
+        first.append(fn.bn_stats_cuda(*inputs[-1], EPS))
+    torch.cuda.synchronize()
+    outs = [fn.bn_stats_cuda(*inputs[i % len(shapes)], EPS)
+            for i in range(BN_RESET_LAUNCHES)]
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(o, first[i % len(shapes)]))
+             for i, o in enumerate(outs)]
+    rec = dict(launches=BN_RESET_LAUNCHES, shapes=shapes,
+               bit_equal=sum(equal), ok=all(equal))
+    log("  bn_stats counter reset: " + json.dumps(rec))
+    return rec
+
+
+def bn_stats_summary(recs):
+    """The stats kernel over ResNet-50's 53 sites (each bf16 site shape
+    times its count): kernel, bound, var_mean, x.sum() and the library's
+    BN forward composite, per step."""
+    main = [r for r in recs if r["sites"]]
+    total = lambda f: sum(r["sites"] * f(r) for r in main)  # noqa: E731
+    rec = dict(sites=sum(r["sites"] for r in main),
+               kernel_ms=total(lambda r: r["stats"]["kernel_ms"]),
+               bound_ms=total(lambda r: r["stats"]["bound_ms"]),
+               var_mean_ms=total(lambda r: r["stats"]["var_mean_ms"]),
+               sum_ms=total(lambda r: r["stats"]["sum_ms"]),
+               library_fwd_ms=total(lambda r: r["library_fwd_ms"]))
+    rec["of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+    log("  bn_stats per ResNet-50 step: " + json.dumps(rec))
+    for r in main:
+        st = r["stats"]
+        log(f"    {r['case']} x{r['sites']}: {st['kernel_ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.4f} ({st['of_bound']:.0%}), "
+            f"x.sum() {st['sum_ms']:.4f}, var_mean {st['var_mean_ms']:.4f}, "
+            f"call {st['call_ms']:.4f}")
+    return rec
+
+
 def phase_bn_kernels():
     """Every ResNet-50 site shape (batch 128, 224x224) in bf16, three of
     them in fp32, a ragged case, a C % 8 != 0 case in each dtype, and
-    one site through the process_group path over a world-1 NCCL group."""
+    one site through the process_group path over a world-1 NCCL group;
+    then the stats kernel's counter-reset check."""
     import torch
     import torch.distributed as dist
 
@@ -958,7 +1055,14 @@ def phase_bn_kernels():
                             group=dist.group.WORLD))
     hvd.shutdown()
     torch.cuda.empty_cache()
-    bad = [r["case"] for r in recs if not r["ok"]]
+    bn_stats_summary(recs)
+    reset = bn_stats_counter_check()
+    bad = [f"{r['case']}:{key}" for r in recs
+           for key, ok in r["ok_by_kernel"].items() if not ok]
+    bad += [r["case"] + ":group" for r in recs
+            if not r.get("group_bit_equal", True)]
+    if not reset["ok"]:
+        bad.append("stats_counter_reset")
     if bad:
         raise AssertionError(
             f"fused-norm kernels disagree with their plain versions: {bad}")
@@ -1121,17 +1225,18 @@ def _kernel_class(name):
 
 
 def _device_breakdown(prof, wall, steps, classify=None):
-    """Device time by kernel class and by kernel name, the device busy
-    share (union of kernel intervals over the wall) and kernels per step
-    from a torch.profiler capture."""
+    """Device time and kernels per step by kernel class, device time by
+    kernel name, the device busy share (union of kernel intervals over
+    the wall) and kernels per step from a torch.profiler capture."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_class, by_name, spans = {}, {}, []
+    by_class, n_class, by_name, spans = {}, {}, {}, []
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         cls = (classify or _kernel_class)(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
+        n_class[cls] = n_class.get(cls, 0) + 1
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
         spans.append((e.time_range.start, e.time_range.end))
     busy_us, end = 0.0, -1.0
@@ -1146,6 +1251,8 @@ def _device_breakdown(prof, wall, steps, classify=None):
     return dict(
         steps=steps, wall_s=wall,
         device_ms_by_class={k: round(v, 3) for k, v in by_class.items()},
+        kernels_per_step_by_class={k: v / max(1, steps)
+                                   for k, v in n_class.items()},
         device_busy_share=(busy_us / 1e6 / wall) if kernels else None,
         top_kernels_ms={k: round(v, 3) for k, v in top},
         kernels_per_step=len(kernels) / max(1, steps))
@@ -1488,7 +1595,7 @@ def _bn_counts():
 
 def _resnet_kernel_class(name):
     n = name.lower()
-    if any(s in n for s in ("bn_stats_partial", "bn_reduce_partials",
+    if any(s in n for s in ("bn_stats", "bn_reduce_partials",
                             "bn_finalize", "bn_apply_kernel",
                             "bn_bwd_partial", "bn_dx_kernel")):
         return "bn_kernels"
@@ -1581,9 +1688,10 @@ def phase_resnet():
 
 
 def profile_resnet(step, state, images, labels):
-    """Device busy share and device time by kernel class (convolutions,
-    the four BN kernels, other elementwise, SGD) over PROFILE_STEPS more
-    steps under torch.profiler."""
+    """Device busy share, device time and kernels by kernel class
+    (convolutions, the fused-norm kernels, other elementwise, SGD) over
+    PROFILE_STEPS more steps under torch.profiler; the fused-norm
+    kernels must be 5 a site."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1598,6 +1706,10 @@ def profile_resnet(step, state, images, labels):
         wall = time.perf_counter() - t0
     rec = _device_breakdown(prof, wall, PROFILE_STEPS,
                             classify=_resnet_kernel_class)
+    # a site runs stats 1, apply 1, backward reduce 2 and dx 1 kernels
+    bn = rec["kernels_per_step_by_class"].get("bn_kernels")
+    assert bn is None or bn == 5 * RESNET_SITES, (
+        f"{bn} fused-norm device kernels a step, not {5 * RESNET_SITES}")
     host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
                    for a in prof.key_averages()
                    if a.device_type == DeviceType.CPU),
@@ -1740,9 +1852,11 @@ def bn_entries(bn_kern, resnet):
     """The fused-norm kernels' entries: ``launches`` from the resnet
     run; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed
     over ResNet-50's 53 sites at batch 128 (each site shape's bf16 case
-    times its count: one training step's worth), ``library_ms`` the
-    forward (stats, apply) or backward (bwd_reduce, dx) of the
-    library's BN composite; ``max_abs_err`` over every fused-norm case."""
+    times its count: one training step's worth), ``library_ms``
+    ``torch.var_mean`` beside stats (its function in one call), the
+    forward (apply) or backward (bwd_reduce, dx) of the library's BN
+    composite beside the others; ``max_abs_err`` over every fused-norm
+    case."""
     entries = []
     for name, key, line, outs in BN_ENTRIES:
         e = dict(name=name, route="cuda",
@@ -1754,8 +1868,9 @@ def bn_entries(bn_kern, resnet):
         if bn_kern:
             main = [r for r in bn_kern if r["sites"]]
             total = lambda f: sum(r["sites"] * f(r) for r in main)  # noqa
-            lib = "library_fwd_ms" if key in ("stats", "apply") else \
-                "library_bwd_ms"
+            lib = {"stats": lambda r: r["stats"]["var_mean_ms"],
+                   "apply": lambda r: r["library_fwd_ms"]}.get(
+                       key, lambda r: r["library_bwd_ms"])
             by = _bound(total(lambda r: r[key]["bound_bytes_ms"]),
                         total(lambda r: r[key]["bound_ops_ms"]))[1]
             bnd = total(lambda r: r[key]["bound_ms"])
@@ -1764,8 +1879,7 @@ def bn_entries(bn_kern, resnet):
                      ms=total(lambda r: r[key]["kernel_ms"]),
                      plain_ms=total(lambda r: r[key]["plain_ms"]),
                      bound_ms=bnd, bound_by=by,
-                     library_ms=(None if any(r[lib] is None for r in main)
-                                 else total(lambda r: r[lib])))
+                     library_ms=total(lib))
         entries.append(e)
     return entries
 

@@ -19,14 +19,31 @@
 //
 // Where the TPU design does not translate:
 //   * _stats_kernel and _bwd_reduce_kernel carry their sums across a
-//     sequential grid in one VMEM buffer.  Here blocks run in no order, so
-//     the reduction takes two passes and no atomics: each block reduces a
-//     strip of rows into fp32 per-channel partials in a (blocks, 2, C)
-//     scratch tensor the wrapper allocates, and a small finishing kernel
-//     sums the partials in a fixed order.  The result is the same from run
-//     to run.
+//     sequential grid in one VMEM buffer.  Here blocks run in no order.
+//   * The stats kernel (bn_stats) is one launch a site.  Its bound is the
+//     bytes of x (a ResNet-50 step's 53 sites: 2.85 GB, 0.85 ms at the
+//     data-sheet rate), and its smaller sites (6-50 MB) last a few
+//     microseconds, so a second launch and a one-wave ramp cost as much
+//     as the read.  Each block reduces a contiguous range of rows (a
+//     host plan, ops/fused_norm.py _stats_plan, from the SM count) with
+//     kLoads 16-byte loads a thread in flight, writes fp32 per-channel
+//     partials to a (blocks, 2, C) scratch tensor, fences and takes a
+//     ticket on its column tile's counter; the block that draws the last
+//     ticket sums the tile's partials and writes the sums (and the
+//     statistics), then sets the counter back to 0 for the next launch.
+//     It reads the partials through L2 (__ldcg): they were written by
+//     other blocks of this launch, and L1 or the read-only path may hold
+//     stale lines.  Every sum runs in an order fixed by thread and block
+//     index, whichever block finishes (a thread's rows in row order, the
+//     block's row threads pairwise, the partials in strided slices of
+//     block indices, the slices pairwise), so a site gives the same bits
+//     on every run; the host plan keeps every sequential chain at or
+//     under 500 terms (the tolerance of the chip check rests on it).
+//   * _bwd_reduce_kernel takes two passes and no atomics: each block
+//     reduces a grid-strided set of rows into partials, and a small
+//     finishing kernel (bn_reduce_partials) sums them in a fixed order.
 //   * The C-length arithmetic between the kernels (mean, var, rstd, scale,
-//     shift: XLA's part in JAX) is the finishing kernel's tail
+//     shift: XLA's part in JAX) is the stats kernel's last block's tail
 //     (finalize_channel), or, when the sums cross ranks first (sync BN), a
 //     launch of its own after the wrapper's all-reduce; the dx kernel forms
 //     g*rstd, sdb/M and sdg/M per channel itself.
@@ -34,13 +51,14 @@
 //     M >= 1 and C >= 1 run.  A thread owns a fixed group of channels (one
 //     16-byte vector: 8 bf16 or 4 fp32; one element on the scalar path,
 //     taken when C is not a multiple of the vector or a pointer is not
-//     16-byte aligned) and walks rows with a grid stride, so a warp reads
-//     whole rows (or runs of rows when C is narrow) contiguously.
+//     16-byte aligned) and walks rows, so a warp reads whole rows (or runs
+//     of rows when C is narrow) contiguously.
 //
 // Block: 256 threads as TX x TY, TX (a power of two <= 32) threads across
 // the channel vectors, TY = 256 / TX down the rows; grid (gx, gy) with
-// gx = ceil((C / V) / TX).  The wrapper picks TX and gy (ops/fused_norm.py
-// _layout) and sizes the partials from gy.
+// gx = ceil((C / V) / TX) column tiles.  The wrapper picks TX and gy
+// (ops/fused_norm.py: _stats_plan for the stats kernel, _layout for the
+// others) and sizes the partials from gy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,8 +68,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxV = 8;  // elements of one 16-byte bf16 vector
-constexpr int kUnroll = 2;  // rows the stats kernel's threads load at once
 constexpr int kReduceBlocksPerSM = 4;  // the wrapper launches one wave
+// the stats kernel: loads of x a thread keeps in flight, the accumulator
+// pairs it sums them into (load u into pair u % kAcc), and the resident
+// blocks an SM its register budget allows (ops/fused_norm.py mirrors the
+// first two; its plan launches at most this many blocks an SM)
+constexpr int kLoads = 8;
+constexpr int kAcc = 1;
+constexpr int kStatsBlocksPerSM = 2;
+static_assert(kLoads % kAcc == 0, "a round of loads fills each pair alike");
 
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -182,53 +207,179 @@ __device__ __forceinline__ void finalize_channel(int c, int C, float s1,
 
 // ------------------------------------------------------------- kernels --
 
-// _stats_kernel, pass 1: per-block partial sums of x and x^2.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, kReduceBlocksPerSM)
-bn_stats_partial(const T* __restrict__ x, long long M, int C, int TX,
-                 float* __restrict__ partials) {
-  const Place p = place<V>(C, TX);
-  float s[V], q[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) s[i] = q[i] = 0.f;
-  if (p.col < p.CV) {
-    const T* xc = x + (long long)p.col * V;
-    const long long step = (long long)gridDim.y * p.TY;
-    long long r = (long long)blockIdx.y * p.TY + p.ty;
-    // kUnroll rows' loads in flight, summed in row order
-    for (; r + (kUnroll - 1) * step < M; r += kUnroll * step) {
-      float v[kUnroll][V];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) load<T, V>(xc + (r + u * step) * C, v[u]);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          s[i] += v[u][i];
-          q[i] += v[u][i] * v[u][i];
-        }
-    }
-    for (; r < M; r += step) {
-      float v[V];
-      load<T, V>(xc + r * C, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s[i] += v[i];
-        q[i] += v[i] * v[i];
-      }
-    }
-  }
-  block_partials<V>(p, C, s, q, partials);
+// V fp32 values written by other blocks of this launch, read from L2.
+template <int V>
+__device__ __forceinline__ void load_cg(const float* p, float* out);
+
+template <>
+__device__ __forceinline__ void load_cg<1>(const float* p, float* out) {
+  out[0] = __ldcg(p);
+}
+template <>
+__device__ __forceinline__ void load_cg<4>(const float* p, float* out) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load_cg<8>(const float* p, float* out) {
+  load_cg<4>(p, out);
+  load_cg<4>(p + 4, out + 4);
 }
 
-// Pass 2 of both reductions: sums (2, C) = the partials summed over their
-// nparts blocks in a fixed order (32 channels x 8 slices a block, each
-// slice a strided sequence, the slices then added in order); with stats
-// non-null, also the per-channel finalize.
+// Pairwise tree over n (a power of two) slices of `stride` floats in
+// shared memory: slice s += slice s + h for h = n/2, n/4, ..., 1, so slice
+// 0 ends with the sum.  Every thread of the block calls it.
+__device__ __forceinline__ void slice_tree(float* sh, int n, int stride) {
+  for (int h = n / 2; h > 0; h /= 2) {
+    for (int i = threadIdx.x; i < h * stride; i += kThreads)
+      sh[i] += sh[i + h * stride];
+    __syncthreads();
+  }
+}
+
+// The stats kernel's tail, from each thread's sums s, q of its V channels
+// (zero for a thread without channels) and `sh`, 2 * kThreads * V floats
+// of shared memory: the block's TY row threads summed in a pairwise tree
+// into its partials (blockIdx.y, {0, 1}, C), the fence, the ticket on
+// column tile blockIdx.x's counter, and in the tile's last block the
+// finish: the tile's gridDim.y partials summed by 2*TX lanes (k, vector)
+// in 256 / (2*TX) slices, slice sl taking partials sl, sl + S, ... in
+// order, the slices then in a pairwise tree; sums written, and with stats
+// non-null the finalize; the counter set back to 0.
+template <int V>
+__device__ __forceinline__ void stats_tail(
+    const Place& p, int C, const float* s, const float* q, float* sh,
+    float* partials, unsigned* counters, float* sums, const float* gamma,
+    const float* beta, float count, float eps, float* stats) {
+  __shared__ bool last;
+  const int TX = kThreads / p.TY;
+  const int W = TX * V;  // channels of a column tile, and a slice's half
+  const int c0 = blockIdx.x * W;
+  const int gy = gridDim.y;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    sh[p.ty * 2 * W + p.tx * V + i] = s[i];
+    sh[p.ty * 2 * W + W + p.tx * V + i] = q[i];
+  }
+  __syncthreads();
+  slice_tree(sh, p.TY, 2 * W);
+  for (int e = threadIdx.x; e < 2 * W; e += kThreads) {
+    const int j = e % W;
+    if (c0 + j < C)
+      partials[((long long)blockIdx.y * 2 + e / W) * C + c0 + j] = sh[e];
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&counters[blockIdx.x], 1u) == (unsigned)gy - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int lanes = 2 * TX;
+  const int S = kThreads / lanes;
+  const int lane = threadIdx.x % lanes;
+  const int sl = threadIdx.x / lanes;
+  const int col = blockIdx.x * TX + lane % TX;
+  float tot[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) tot[i] = 0.f;
+  if (col < p.CV) {
+    const float* pc =
+        partials + (long long)(lane / TX) * C + (long long)col * V;
+    for (int j = sl; j < gy; j += kLoads * S) {
+      float t[kLoads][V];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (j + u * S < gy)
+          load_cg<V>(pc + (long long)(j + u * S) * 2 * C, t[u]);
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (j + u * S < gy)
+#pragma unroll
+          for (int i = 0; i < V; ++i) tot[i] += t[u][i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) sh[threadIdx.x * V + i] = tot[i];
+  __syncthreads();
+  slice_tree(sh, S, 2 * W);
+  for (int j = threadIdx.x; j < W && c0 + j < C; j += kThreads) {
+    sums[c0 + j] = sh[j];
+    sums[C + c0 + j] = sh[W + j];
+    if (stats != nullptr)
+      finalize_channel(c0 + j, C, sh[j], sh[W + j], gamma, beta, count, eps,
+                       stats);
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+// _stats_kernel: sums (2, C) = per-channel sum x and sum x^2 in one launch
+// (see the header).  Block (bx, by) reduces rows [by*rows, (by+1)*rows) of
+// column tile bx (TX*V channels): thread (tx, ty) takes the tile's vector
+// tx of rows ty, ty + TY, ..., kLoads of them in flight, summed in row
+// order (row n of the thread into pair n % kAcc, the pairs then in order);
+// then stats_tail.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kStatsBlocksPerSM)
+bn_stats(const T* __restrict__ x, long long M, int C, int TX, long long rows,
+         float* partials, unsigned* counters, float* sums,
+         const float* gamma, const float* beta, float count, float eps,
+         float* stats) {
+  __shared__ float sh[2 * kThreads * V];
+  const Place p = place<V>(C, TX);
+  float s[kAcc][V], q[kAcc][V];
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[a][i] = q[a][i] = 0.f;
+  if (p.col < p.CV) {
+    const T* xc = x + (long long)p.col * V;
+    const long long r1 = min(M, (blockIdx.y + 1) * rows);
+    long long r = blockIdx.y * rows + p.ty;
+    for (; r + (kLoads - 1) * p.TY < r1; r += kLoads * p.TY) {
+      float v[kLoads][V];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        load<T, V>(xc + (r + u * p.TY) * C, v[u]);
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          s[u % kAcc][i] += v[u][i];
+          q[u % kAcc][i] = __fmaf_rn(v[u][i], v[u][i], q[u % kAcc][i]);
+        }
+    }
+    // the last round: fewer than kLoads rows left for this thread
+    float v[kLoads][V];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (r + u * p.TY < r1) load<T, V>(xc + (r + u * p.TY) * C, v[u]);
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (r + u * p.TY < r1)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          s[u % kAcc][i] += v[u][i];
+          q[u % kAcc][i] = __fmaf_rn(v[u][i], v[u][i], q[u % kAcc][i]);
+        }
+#pragma unroll
+    for (int a = 1; a < kAcc; ++a)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        s[0][i] += s[a][i];
+        q[0][i] += q[a][i];
+      }
+  }
+  stats_tail<V>(p, C, s[0], q[0], sh, partials, counters, sums, gamma, beta,
+                count, eps, stats);
+}
+
+// Pass 2 of the backward reduction: sums (2, C) = the partials summed over
+// their nparts blocks in a fixed order (32 channels x 8 slices a block,
+// each slice a strided sequence, the slices then added in order).
 __global__ void __launch_bounds__(kThreads)
 bn_reduce_partials(const float* __restrict__ partials, int nparts, int C,
-                   float* __restrict__ sums, const float* gamma,
-                   const float* beta, float count, float eps, float* stats) {
+                   float* __restrict__ sums) {
   __shared__ float sa[8][32];
   __shared__ float sb[8][32];
   const int tx = threadIdx.x & 31;
@@ -255,7 +406,6 @@ bn_reduce_partials(const float* __restrict__ partials, int nparts, int C,
   }
   sums[c] = a;
   sums[C + c] = b;
-  if (stats != nullptr) finalize_channel(c, C, a, b, gamma, beta, count, eps, stats);
 }
 
 // The finalize alone, after the sums crossed ranks (sync BN).
@@ -395,16 +545,12 @@ dim3 reduce_grid(int C) { return dim3((C + 31) / 32); }
 
 template <typename T, int V>
 cudaError_t stats_t(const void* x, long long M, int C, int TX, int gy,
-                    float* partials, float* sums, const float* gamma,
-                    const float* beta, float count, float eps, float* stats,
-                    cudaStream_t s) {
-  const dim3 g = grid_of(C, V, TX, gy);
-  bn_stats_partial<T, V><<<g, kThreads, 0, s>>>(
-      static_cast<const T*>(x), M, C, TX, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bn_reduce_partials<<<reduce_grid(C), kThreads, 0, s>>>(
-      partials, gy, C, sums, gamma, beta, count, eps, stats);
+                    long long rows, float* partials, unsigned* counters,
+                    float* sums, const float* gamma, const float* beta,
+                    float count, float eps, float* stats, cudaStream_t s) {
+  bn_stats<T, V><<<grid_of(C, V, TX, gy), kThreads, 0, s>>>(
+      static_cast<const T*>(x), M, C, TX, rows, partials, counters, sums,
+      gamma, beta, count, eps, stats);
   return cudaGetLastError();
 }
 
@@ -431,8 +577,8 @@ cudaError_t bwd_reduce_t(const void* x, const void* dy, const void* y,
       static_cast<const T*>(y), mean, rstd, M, C, TX, relu, partials);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bn_reduce_partials<<<reduce_grid(C), kThreads, 0, s>>>(
-      partials, gy, C, sums, nullptr, nullptr, 1.f, 0.f, nullptr);
+  bn_reduce_partials<<<reduce_grid(C), kThreads, 0, s>>>(partials, gy, C,
+                                                         sums);
   return cudaGetLastError();
 }
 
@@ -463,20 +609,26 @@ bool bad_layout(int C, int TX, int gy) {
 }  // namespace
 
 // x: (M, C) row-major, bf16 (is_bf16) or fp32; vec: 16-byte vector path
-// (C a multiple of the vector, every row pointer 16-byte aligned); TX and
-// gy: the layout (see the header).  partials: (gy, 2, C) fp32 scratch;
-// sums: (2, C) fp32 out.  With stats non-null, also writes stats (5, C):
-// mean, var, rstd, scale = gamma*rstd, shift = beta - mean*scale, over
-// `count` rows.
+// (C a multiple of the vector, every row pointer 16-byte aligned); TX, gy
+// and rows: the plan (ops/fused_norm.py _stats_plan; block y of a column
+// tile takes rows [y*rows, min(M, (y+1)*rows)), none empty).  partials:
+// (gy, 2, C) fp32 scratch; counters: one zero uint32 per column tile, left
+// zero; sums: (2, C) fp32 out.  With stats non-null, also writes stats
+// (5, C): mean, var, rstd, scale = gamma*rstd, shift = beta - mean*scale,
+// over `count` rows.
 extern "C" int hvd_bn_stats(const void* x, long long M, int C, int is_bf16,
-                            int vec, int TX, int gy, float* partials,
-                            float* sums, const float* gamma, const float* beta,
+                            int vec, int TX, int gy, long long rows,
+                            float* partials, unsigned* counters, float* sums,
+                            const float* gamma, const float* beta,
                             float count, float eps, float* stats,
                             void* stream) {
-  if (bad_layout(C, TX, gy)) return (int)cudaErrorInvalidValue;
+  if (bad_layout(C, TX, gy) || M < 1 || rows < 1 ||
+      (long long)(gy - 1) * rows >= M || (long long)gy * rows < M)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)HVD_BN_DISPATCH(stats_t, x, M, C, TX, gy, partials, sums, gamma,
-                              beta, count, eps, stats, s);
+  return (int)HVD_BN_DISPATCH(stats_t, x, M, C, TX, gy, rows, partials,
+                              counters, sums, gamma, beta, count, eps, stats,
+                              s);
 }
 
 // stats (5, C) from sums (2, C) that crossed ranks (the sync-BN path).

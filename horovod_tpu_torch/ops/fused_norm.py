@@ -44,7 +44,7 @@ before its step averages them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,9 +58,24 @@ from . import _build
 _THREADS = 256
 _TARGET_BLOCKS = 2048
 _REDUCE_BLOCKS = 528
-#: the reduction kernels keep their (blocks, 2, C) fp32 partials at most
+#: the backward reduction keeps its (blocks, 2, C) fp32 partials at most
 #: 1/16 of a bf16 input's bytes: one block per 64 rows at most
 _ROWS_PER_PARTIAL = 64
+#: the stats kernel (``csrc/fused_norm.cu`` bn_stats): the blocks an SM
+#: its plan launches (one wave; at most the kernel's
+#: ``kStatsBlocksPerSM``; one a SM measured faster than two over a
+#: ResNet-50 step, ``tools/bn_stats_ab.py``), the loads of x a thread
+#: keeps in flight and the accumulator pairs it sums them into
+#: (``kLoads``, ``kAcc`` there); the 16-byte vectors of a column tile's
+#: row on the vector path (8: 128 bytes); the most partial bytes the
+#: finishing block of a column tile reads; the longest sequential chain
+#: of fp32 additions in a sum (the chip check's tolerance rests on it)
+_STATS_BLOCKS_PER_SM = 1
+_STATS_LOADS = 8
+_STATS_ACC = 1
+_STATS_TILE_VECS = 8
+_STATS_FINISH_BYTES = 150 * 1024
+_STATS_CHAIN = 500
 
 
 # -- plain versions -----------------------------------------------------------
@@ -134,8 +149,9 @@ def _layout(m: int, c: int, vec: int) -> Tuple[int, int, int, int]:
     ``vec`` elements a thread-column: TX threads across the C/vec
     channel vectors (a power of two up to 32), 256/TX down the rows; the
     streaming kernels (apply, dx) take ``gy_stream`` row blocks, the
-    reduction kernels (stats, backward reduce) ``gy_reduce``, fewer
-    where M is small, so their partials stay small."""
+    backward reduction ``gy_reduce``, fewer where M is small, so its
+    partials stay small (the stats kernel's plan is
+    :func:`_stats_plan`)."""
     cv = c // vec
     tx = min(32, 1 << max(0, cv - 1).bit_length())
     ty = _THREADS // tx
@@ -145,6 +161,73 @@ def _layout(m: int, c: int, vec: int) -> Tuple[int, int, int, int]:
     gy_reduce = max(1, min(rows, -(-_REDUCE_BLOCKS // gx),
                            m // _ROWS_PER_PARTIAL))
     return tx, gx, gy_stream, gy_reduce
+
+
+class _StatsPlan(NamedTuple):
+    """The stats kernel's launch: ``tx`` threads across the channel
+    vectors of a column tile (``ty = 256 / tx`` down the rows), ``gx``
+    column tiles of ``tx·vec`` channels, ``gy`` row blocks a tile, block
+    ``y`` taking rows ``[y·rows, min(m, (y + 1)·rows))`` (``rows`` a
+    multiple of ``ty``; no block is empty); its scratch: ``partials``
+    fp32 elements (``(gy, 2, c)``) and ``counters`` int32 (one a tile)."""
+    tx: int
+    ty: int
+    gx: int
+    gy: int
+    rows: int
+    partials: int
+    counters: int
+
+
+def _stats_plan(m: int, c: int, vec: int, sms: int) -> _StatsPlan:
+    """The stats kernel's plan for an (m, c) site with ``vec`` elements
+    a thread-column on a card of ``sms`` SMs.  A column tile is
+    ``_STATS_TILE_VECS`` vectors of a row on the vector path (128 bytes)
+    and up to 32 channels on the scalar path.  The row blocks fill one wave of
+    ``_STATS_BLOCKS_PER_SM`` blocks on every SM, but no fewer than
+    ``_STATS_LOADS`` rows a thread (a small site then takes fewer, fuller
+    blocks) and no more partials a tile than ``_STATS_FINISH_BYTES``; a
+    tall site takes more blocks where a thread's rows would exceed
+    ``_STATS_CHAIN`` a pair."""
+    cv = c // vec
+    tx = min(_STATS_TILE_VECS if vec > 1 else 32,
+             1 << max(0, cv - 1).bit_length())
+    ty = _THREADS // tx
+    gx = -(-cv // tx)
+    gy = min(max(1, sms * _STATS_BLOCKS_PER_SM // gx),
+             -(-m // (ty * _STATS_LOADS)),
+             max(1, _STATS_FINISH_BYTES // (8 * tx * vec)))
+    gy = min(max(gy, -(-m // (ty * _STATS_ACC * _STATS_CHAIN))), 65535)
+    rows = -(-(-(-m // gy)) // ty) * ty
+    gy = -(-m // rows)
+    return _StatsPlan(tx, ty, gx, gy, rows, gy * 2 * c, gx)
+
+
+_SMS = {}
+
+
+def _sm_count(dev) -> int:
+    """The card's SM count, read once a device."""
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+_COUNTERS = {}
+
+
+def _stats_counters(dev, stream: int, n: int):
+    """The stats kernel's column-tile counters on ``stream``: one int32
+    buffer per (device, stream), zero when made, left zero by every
+    launch (its last block of each tile resets its counter), so no call
+    clears it; grown (made anew, zero) when a launch needs more tiles."""
+    key = (dev.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _vec_of(c: int, *tensors) -> int:
@@ -196,8 +279,8 @@ def _check_cuda(x2d, *rows, **channels):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGS = {
-    "hvd_bn_stats": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _P,
-                     _P],
+    "hvd_bn_stats": [_P, _L, _I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _F,
+                     _F, _P, _P],
     "hvd_bn_finalize": [_P, _I, _P, _P, _F, _F, _P, _P],
     "hvd_bn_apply": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P],
     "hvd_bn_bwd_reduce": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P,
@@ -220,18 +303,21 @@ def _ptr(t):
 
 
 def bn_stats_cuda(x2d, gamma, beta, eps, process_group=None):
-    """Launch the stats kernel (``csrc/fused_norm.cu``, then its finishing
-    kernel) on a contiguous (M, C) bf16/fp32 CUDA tensor.  Returns the
-    (5, C) fp32 stats: mean, var, rstd, scale = γ·rstd, shift = β −
-    mean·scale.  With ``process_group`` the sums are all-reduced (Sum)
-    before the finalize, over ``M·world`` rows.
-    ``bn_stats_cuda.launches`` counts successful launches."""
+    """Launch the stats kernel (``csrc/fused_norm.cu``: one launch, its
+    last blocks finish) on a contiguous (M, C) bf16/fp32 CUDA tensor.
+    Returns the (5, C) fp32 stats: mean, var, rstd, scale = γ·rstd,
+    shift = β − mean·scale.  With ``process_group`` the kernel writes the
+    sums only, which are all-reduced (Sum) before the finalize, over
+    ``M·world`` rows.  ``bn_stats_cuda.launches`` counts successful
+    launches."""
     _check_cuda(x2d, gamma=gamma, beta=beta)
     m, c = x2d.shape
     vec = _vec_of(c, x2d)
-    tx, _, _, gy = _layout(m, c, vec)
     dev = x2d.device
-    partials = torch.empty((gy, 2, c), dtype=torch.float32, device=dev)
+    plan = _stats_plan(m, c, vec, _sm_count(dev))
+    stream = _stream(x2d)
+    counters = _stats_counters(dev, stream, plan.counters)
+    partials = torch.empty(plan.partials, dtype=torch.float32, device=dev)
     sums = torch.empty((2, c), dtype=torch.float32, device=dev)
     stats = torch.empty((5, c), dtype=torch.float32, device=dev)
     count = float(_global_count(m, process_group))
@@ -239,16 +325,17 @@ def bn_stats_cuda(x2d, gamma, beta, eps, process_group=None):
     bf16 = int(x2d.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         _build.launch(lib, "hvd_bn_stats", (
-            x2d.data_ptr(), m, c, bf16, int(vec > 1), tx, gy,
-            partials.data_ptr(), sums.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), count, float(eps),
+            x2d.data_ptr(), m, c, bf16, int(vec > 1), plan.tx, plan.gy,
+            plan.rows, partials.data_ptr(), counters.data_ptr(),
+            sums.data_ptr(), gamma.data_ptr(), beta.data_ptr(), count,
+            float(eps),
             None if process_group is not None else stats.data_ptr(),
-            _stream(x2d)))
+            stream))
         if process_group is not None:
             dist.all_reduce(sums, group=process_group)
             _build.launch(lib, "hvd_bn_finalize", (
                 sums.data_ptr(), c, gamma.data_ptr(), beta.data_ptr(), count,
-                float(eps), stats.data_ptr(), _stream(x2d)))
+                float(eps), stats.data_ptr(), stream))
     bn_stats_cuda.launches += 1
     return stats
 

@@ -481,6 +481,55 @@ def test_fused_norm_matches_plain_version(dtype, tol, m, c, relu, res):
         assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
+def _bn_stats_inputs(m, c, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = (2 * torch.randn((m, c), generator=g, device="cuda")
+         + torch.randn((c,), generator=g, device="cuda")).to(dtype)
+    return (x, torch.rand((c,), generator=g, device="cuda") + 0.5,
+            torch.randn((c,), generator=g, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c", [(1, 1), (1, 64), (7, 3), (777, 30),
+                                 (4096, 64), (3000, 2048), (20_000, 256)])
+def test_bn_stats_is_one_launch_and_deterministic(dtype, m, c):
+    """The stats kernel (one launch, its last blocks finish) against the
+    plain version, with the same bits on a second call; mean and var
+    within chip_smoke's BN_STAT_TOL of their terms' scale."""
+    _need_card()
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    x, gamma, beta = _bn_stats_inputs(m, c, dtype, m + c)
+    before = fn.bn_stats_cuda.launches
+    stats = fn.bn_stats_cuda(x, gamma, beta, 1e-5)
+    again = fn.bn_stats_cuda(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert fn.bn_stats_cuda.launches - before == 2
+    assert torch.equal(stats, again)
+    mean, var, _ = fn.bn_stats_reference(x, 1e-5)
+    ex2 = (x.float() ** 2).mean(0)
+    assert bool(((stats[0] - mean).abs() <= 1e-4 * ex2.sqrt() + 1e-30).all())
+    assert bool(((stats[1] - var).abs() <= 2e-4 * ex2 + 1e-30).all())
+
+
+def test_bn_stats_counters_reset_between_launches():
+    """Launches back to back over shapes of 1 to 32 column tiles, each
+    bit-equal to its shape's first call: the last block of every launch
+    leaves its tiles' counters at 0 for the next one."""
+    _need_card()
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    cases = [_bn_stats_inputs(m, c, dtype, i) for i, (m, c, dtype) in
+             enumerate([(4096, 64, torch.bfloat16),
+                        (3000, 2048, torch.bfloat16),
+                        (999, 100, torch.float32), (5, 1, torch.float32)])]
+    first = [fn.bn_stats_cuda(*a, 1e-5) for a in cases]
+    outs = [fn.bn_stats_cuda(*cases[i % 4], 1e-5) for i in range(24)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, first[i % 4]), i
+
+
 def test_fused_norm_raises_on_what_the_kernels_do_not_take():
     """A CUDA tensor the kernels cannot take raises; nothing falls back."""
     _need_card()
