@@ -78,11 +78,30 @@ if any fails:
    (no CUDA-core launch); tokens/s,
    MFU, peak memory, then the
    device busy share and time by kernel class over 2 profiled steps;
-7. training_oracle: gpt_small width, 2 layers, fp32 — the gradient of
+7. overlap: the training run again through
+   ``data_parallel_train_step(overlap=True)``, each gradient bucket's
+   NCCL allreduce launched from the backward's hooks: every loss equal
+   to the training phase's bit for bit (world 1: Average divides by 1,
+   fusion moves no bits), 12 sm90 launches of each training kernel a
+   step, ``BucketSchedule.num_buckets`` gradient allreduces a step (a
+   wrapper of ``torch.distributed.all_reduce`` counts them, with the
+   loss's), every bucket launched from a hook in schedule order and all
+   but the last with gradients still to come (each bucket's hook index:
+   the gradients ready at its launch); step time and tokens/s beside
+   the training phase's;
+8. zero: the training run through ``training.zero_train_setup`` over
+   the same AdamW (the flat-shard optimizer; at world 1 the shard is the
+   whole model): losses within ZERO_LOSS_REL_TOL of the training
+   phase's, 12 sm90 launches of each kernel a step, the optimizer-state
+   bytes per rank; then 3 steps of SGD(0.1, momentum 0.9) through
+   ``zero_train_setup`` and through ``data_parallel_train_step`` with
+   bit-identical losses and parameters; step time and tokens/s beside
+   the training phase's;
+9. training_oracle: gpt_small width, 2 layers, fp32 — the gradient of
    every parameter through the kernels ("flash") against the plain dense
    path ("dot") on the same weights and batch, through the CUDA-core
    (simt) forward, dq and dkv: 2 launches of each;
-8. resnet: ResNet-50 at full width and depth (bench.py's configuration:
+10. resnet: ResNet-50 at full width and depth (bench.py's configuration:
    1000 classes, bf16 over fp32 masters, space-to-depth stem), batch
    128 of 224x224 seeded images, SGD(0.1, momentum 0.9), through
    ``init()`` (world 1 over NCCL), ``replicate_state`` and
@@ -92,12 +111,21 @@ if any fails:
    peak memory, then the device busy share and time by kernel class
    over 2 profiled steps, with 5 fused-norm device kernels a site
    (stats 1, apply 1, backward reduce 2, dx 1: 265 a step);
-9. resnet_oracle: ResNet-50 width, stage depths [1, 1, 1, 1], batch 4
+11. resnet_oracle: ResNet-50 width, stage depths [1, 1, 1, 1], batch 4
    of 64x64, fp32 with TF32 off — every parameter gradient and running
-   statistic on the card (the kernels) against the CPU (plain versions).
+   statistic on the card (the kernels) against the CPU (plain versions);
+12. dp4 (four cards; not in the default run, which needs one): gpt_small
+   data-parallel training over NCCL, four ranks each on its own seeded
+   B=8 x S=2048 batch, through the plain, overlapped and ZeRO steps of
+   each package root given by ``--roots`` in turn (another checkout's
+   root runs whichever steps it has): every rank's losses equal, the
+   overlapped step's bit-identical to the plain step's, ZeRO's within
+   ZERO_LOSS_REL_TOL; step times and tokens/s; and the gradients'
+   rank-ordered allreduce against NCCL's own, in turns.
 
-Each main path (serving, training, resnet) is driven with the kernels'
-launch counts set to 0 just before it and read just after.  The card's
+Each main path (serving, training, overlap, zero, resnet) is driven
+with the kernels' launch counts set to 0 just before it and read just
+after.  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -111,8 +139,9 @@ the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
 null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
-``--phases`` runs a subset (e.g. ``--phases kernels,training``); the
-default runs all.
+``--phases`` runs a subset (e.g. ``--phases kernels,training``; overlap
+and zero run training first, whose losses they are held against); the
+default runs all but dp4.
 """
 
 from __future__ import annotations
@@ -1425,42 +1454,46 @@ def _train_counts():
         n for fn in fns for n in (fn.sm90_launches, fn.simt_launches))
 
 
-def phase_training():
+def _gpt_small():
     """gpt_small (12 layers, 12 heads of 64, vocab 32000) at full width
-    and depth, B=8 x S=2048, bf16 compute over fp32 master weights,
-    AdamW(1e-3) at optax's defaults, through the public training path:
-    init() (world 1 over NCCL) -> replicate_state -> data_parallel_
-    train_step, TRAIN_STEPS steps on one fixed batch."""
+    and depth, bf16 compute over fp32 masters from SEED, and the fixed
+    B=8 x S=2048 batch: ``(cfg, model, inputs, labels)``."""
     import numpy as np
     import torch
 
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import training
     from horovod_tpu_torch.models import Transformer, gpt_small, init_params
 
-    hvd.init()
-    assert hvd.size() == 1 and hvd.device().type == "cuda"
     cfg = gpt_small(dtype=torch.bfloat16, attention_impl="flash")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
                          device="cuda", param_dtype=torch.float32)
     model = Transformer(cfg, params=params)
     del params
-    n_params = sum(p.numel() for p in model.parameters())
-    # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=1e-4)
-    state = training.replicate_state(training.create_train_state(model, opt))
-    step = training.data_parallel_train_step(model, opt)
     rs = np.random.RandomState(SEED)
     toks = torch.as_tensor(
         rs.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)),
         dtype=torch.long, device="cuda")
-    inputs, labels = toks[:, :-1], toks[:, 1:]
+    return cfg, model, toks[:, :-1], toks[:, 1:]
+
+
+def _adamw(params):
+    """optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay
+    1e-4, at lr 1e-3."""
+    import torch
+
+    return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _drive(step, state, inputs, labels, steps, each=None):
+    """``steps`` steps with the training kernels' counts set to 0 first:
+    ``(state, losses, per-step kernel counts, step seconds)``; ``each()``
+    runs after every step."""
+    import torch
+
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _reset_train_counts()
     losses, per_step, times = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         before = _train_counts()
         t0 = time.perf_counter()
         state, loss = step(state, inputs, labels)
@@ -1469,33 +1502,97 @@ def phase_training():
         losses.append(loss)
         per_step.append(tuple(a - b for a, b in zip(_train_counts(),
                                                     before)))
-    launches = _train_counts()
-    losses = [float(x) for x in losses]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if each is not None:
+            each()
+    return state, [float(x) for x in losses], per_step, times
+
+
+def _bucket_host_ms(since, steps):
+    """Host ms a step inside the gradient buckets' collective calls (the
+    ``overlap.bucket`` trace spans, on whichever thread launched them)."""
+    from horovod_tpu_torch import trace
+
+    spans = [r for r in trace.snapshot(since) if r[0] == "overlap.bucket"]
+    return sum(r[2] for r in spans) * 1e3 / steps
+
+
+def _check_train_run(cfg, losses, per_step):
+    """Every loss finite and the last below the first; 12 launches of
+    each training kernel a step, every one the sm90 variant."""
     assert all(math.isfinite(x) for x in losses), f"loss not finite: {losses}"
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    # every forward, dq and dkv of the bf16 step is the sm90 variant
     n = cfg.num_layers
     want = (n, n, n) + (n, 0) * 3
     assert all(c == want for c in per_step), (
         f"kernel launches per step {per_step} != {want} "
         f"({', '.join(TRAIN_COUNTS)})")
-    assert state.step == TRAIN_STEPS
+
+
+def _speed(times, n_params, cfg):
+    """Steady step time (the first step pays one-time set-up), tokens/s
+    and MFU."""
     tokens = TRAIN_B * TRAIN_S
-    steady = times[1:]  # the first step pays one-time set-up
+    steady = times[1:]
     step_s = sum(steady) / len(steady)
+    median = sorted(steady)[len(steady) // 2]
     # model FLOPs: 6·N per token (attention's S² term not counted); the
     # attention-inclusive figure adds 6·L·S·d per token (causal half of
     # 12·L·S·d)
     mfu = 6 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"]
     attn = 6 * cfg.num_layers * TRAIN_S * cfg.d_model * tokens
+    return dict(step_s=times, step_s_mean_steady=step_s,
+                step_s_median_steady=median,
+                tokens_per_s=tokens / step_s, mfu_6n=mfu,
+                mfu_6n_plus_attention=mfu + attn / step_s
+                / PEAK_FLOPS["bfloat16"])
+
+
+def _beside(rec, train):
+    """A phase's step time and tokens/s beside the training phase's."""
+    return (f"step {rec['step_s_mean_steady'] * 1e3:.2f} ms mean, "
+            f"{rec['step_s_median_steady'] * 1e3:.2f} median, "
+            f"{rec['tokens_per_s']:.0f} tokens/s (training phase: "
+            f"{train['step_s_mean_steady'] * 1e3:.2f} ms mean, "
+            f"{train['step_s_median_steady'] * 1e3:.2f} median, "
+            f"{train['tokens_per_s']:.0f} tokens/s)")
+
+
+def phase_training():
+    """gpt_small at full width and depth, B=8 x S=2048, bf16 compute
+    over fp32 master weights, AdamW(1e-3) at optax's defaults, through
+    the public training path: init() (world 1 over NCCL) ->
+    replicate_state -> data_parallel_train_step, TRAIN_STEPS steps on
+    one fixed batch."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import trace, training
+    from horovod_tpu_torch.optim import state_bytes
+
+    hvd.init()
+    assert hvd.size() == 1 and hvd.device().type == "cuda"
+    cfg, model, inputs, labels = _gpt_small()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = _adamw(model.parameters())
+    state = training.replicate_state(training.create_train_state(model, opt))
+    step = training.data_parallel_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    since = trace.now()
+    state, losses, per_step, times = _drive(step, state, inputs, labels,
+                                            TRAIN_STEPS)
+    bucket_ms = _bucket_host_ms(since, TRAIN_STEPS)
+    launches = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_train_run(cfg, losses, per_step)
+    assert state.step == TRAIN_STEPS
     rec = dict(params=n_params, batch=[TRAIN_B, TRAIN_S],
-               steps=TRAIN_STEPS, losses=losses, step_s=times,
-               step_s_mean_steady=step_s, tokens_per_s=tokens / step_s,
-               mfu_6n=mfu, mfu_6n_plus_attention=mfu + attn / step_s
-               / PEAK_FLOPS["bfloat16"],
+               steps=TRAIN_STEPS, losses=losses,
+               **_speed(times, n_params, cfg),
                launches=dict(zip(TRAIN_COUNTS, launches)),
-               launches_per_step=list(per_step[0]), peak_mem_gb=peak_gb)
+               launches_per_step=list(per_step[0]), peak_mem_gb=peak_gb,
+               buckets=step.reducer.schedule.num_buckets,
+               bucket_launch_host_ms_per_step=bucket_ms,
+               opt_state_bytes=state_bytes(opt.state))
     log("  training: " + json.dumps(rec))
     rec["profile"] = profile_train(step, state, inputs, labels)
     hvd.shutdown()
@@ -1504,9 +1601,153 @@ def phase_training():
     return rec
 
 
-def profile_train(step, state, inputs, labels):
+def phase_overlap(train):
+    """The training phase's run through data_parallel_train_step(
+    overlap=True): each BucketSchedule bucket's NCCL allreduce launched
+    from the backward's hooks.  World 1, so Average divides by 1 and
+    fusion moves no bits: every loss equals the training phase's.  Each
+    step issues num_buckets gradient allreduces (and the loss's), every
+    bucket from a hook inside the backward, in order."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import trace, training
+
+    hvd.init()
+    cfg, model, inputs, labels = _gpt_small()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = _adamw(model.parameters())
+    state = training.replicate_state(training.create_train_state(model, opt))
+    step = training.data_parallel_train_step(model, opt, overlap=True)
+    reducer = step.reducer
+    n_buckets = reducer.schedule.num_buckets
+    calls, launches = [0], []
+    plain_all_reduce = dist.all_reduce
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return plain_all_reduce(*a, **k)
+
+    def each():
+        launches.append((calls[0], list(reducer.last_launches)))
+        calls[0] = 0
+
+    dist.all_reduce = counting
+    since = trace.now()
+    try:
+        state, losses, per_step, times = _drive(step, state, inputs, labels,
+                                                TRAIN_STEPS, each)
+    finally:
+        dist.all_reduce = plain_all_reduce
+    bucket_ms = _bucket_host_ms(since, TRAIN_STEPS)
+    counts = _train_counts()
+    _check_train_run(cfg, losses, per_step)
+    assert losses == train["losses"], (
+        f"overlapped losses {losses} != the training phase's "
+        f"{train['losses']}")
+    n_grads = len(reducer.params)
+    for n_calls, log_ in launches:
+        # one allreduce a bucket, and the loss's
+        assert n_calls == n_buckets + 1, (n_calls, n_buckets)
+        assert [b for b, _, _ in log_] == list(range(n_buckets)), log_
+        assert all(from_hook for _, _, from_hook in log_), log_
+        # every bucket but the last launched with gradients still to come
+        assert all(ready < n_grads for _, ready, _ in log_[:-1]), log_
+    rec = dict(steps=TRAIN_STEPS, losses=losses,
+               **_speed(times, n_params, cfg),
+               launches=dict(zip(TRAIN_COUNTS, counts)),
+               buckets=n_buckets, grads=n_grads,
+               allreduces_per_step=launches[-1][0],
+               bucket_launch_host_ms_per_step=bucket_ms,
+               bucket_hook_index=[ready for _, ready, _ in launches[-1][1]])
+    log("  overlap: " + json.dumps(rec))
+    log("  overlap: " + _beside(rec, train))
+    rec["profile"] = profile_train(step, state, inputs, labels, "overlap")
+    hvd.shutdown()
+    del state, step, model, opt, reducer
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: ZeRO's flat AdamW shard against the training phase's per-tensor
+#: AdamW: losses within this relative bound (on the CPU both take the
+#: same elementwise path and agree to 0 on gpt_tiny and an MLP, world 1,
+#: 2 and 4; the bound is test_torch_training's for two AdamWs whose
+#: gradients differ at fp32 rounding)
+ZERO_LOSS_REL_TOL = 1e-5
+ZERO_SGD_STEPS = 3
+
+
+def phase_zero(train):
+    """gpt_small through training.zero_train_setup over the training
+    phase's AdamW: the flat-shard optimizer (at world 1 the shard is the
+    whole model), TRAIN_STEPS steps; then SGD(0.1, momentum 0.9) for
+    ZERO_SGD_STEPS steps through zero_train_setup and through
+    data_parallel_train_step, which must give identical bits."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.optim import state_bytes
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=0.1, momentum=0.9)
+
+    hvd.init()
+    cfg, model, inputs, labels = _gpt_small()
+    n_params = sum(p.numel() for p in model.parameters())
+    state, step = training.zero_train_setup(model, _adamw(model.parameters()))
+    zopt = state.optimizer
+    assert zopt.sharded
+    state, losses, per_step, times = _drive(step, state, inputs, labels,
+                                            TRAIN_STEPS)
+    counts = _train_counts()
+    _check_train_run(cfg, losses, per_step)
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    assert max(errs) <= ZERO_LOSS_REL_TOL, (losses, train["losses"])
+    rec = dict(steps=TRAIN_STEPS, losses=losses,
+               loss_rel_err_vs_training=max(errs),
+               loss_rel_tol=ZERO_LOSS_REL_TOL,
+               **_speed(times, n_params, cfg),
+               launches=dict(zip(TRAIN_COUNTS, counts)),
+               opt_state_bytes_per_rank=state_bytes(zopt.state),
+               replicated_opt_state_bytes=train.get("opt_state_bytes"))
+    rec["profile"] = profile_train(step, state, inputs, labels, "zero")
+    del state, step, model, zopt
+    torch.cuda.empty_cache()
+    runs = []
+    for zero in (False, True):
+        cfg, model, inputs, labels = _gpt_small()
+        if zero:
+            state, step = training.zero_train_setup(model,
+                                                    sgd(model.parameters()))
+        else:
+            opt = sgd(model.parameters())
+            state = training.create_train_state(model, opt)
+            step = training.data_parallel_train_step(model, opt)
+        state, sgd_losses, _, _ = _drive(step, state, inputs, labels,
+                                         ZERO_SGD_STEPS)
+        runs.append((sgd_losses, [p.detach().clone()
+                                  for p in model.parameters()]))
+        del state, step, model
+    assert runs[0][0] == runs[1][0], (runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    rec["sgd_losses"] = runs[0][0]
+    rec["sgd_bit_identical"] = True
+    log("  zero: " + json.dumps(rec))
+    log("  zero: " + _beside(rec, train) + "; optimizer state "
+        f"{rec['opt_state_bytes_per_rank']} B per rank")
+    hvd.shutdown()
+    del runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_train(step, state, inputs, labels, name="training"):
     """Device busy share and device time by kernel class over
-    PROFILE_STEPS more steps under torch.profiler."""
+    PROFILE_STEPS more steps under torch.profiler, and the host ops
+    (CUDA runtime calls included) with the most self time a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1519,7 +1760,11 @@ def profile_train(step, state, inputs, labels):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rec = _device_breakdown(prof, wall, PROFILE_STEPS)
-    log("  training profile: " + json.dumps(rec))
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    rec["top_host_self_ms_per_step"] = {
+        e.key[:60]: round(e.self_cpu_time_total / 1e3 / PROFILE_STEPS, 3)
+        for e in host[:10]}
+    log(f"  {name} profile: " + json.dumps(rec))
     return rec
 
 
@@ -1838,8 +2083,218 @@ def phase_resnet_oracle():
     return rec
 
 
-PHASES = ("kernels", "serving", "oracle", "training", "training_oracle",
-          "resnet", "resnet_oracle")
+#: one rank of the dp4 phase: gpt_small data-parallel training over
+#: NCCL (gloo with device "cpu"), each rank on its own seeded batch,
+#: through whichever of the plain, overlapped and ZeRO steps the
+#: imported package has; then (where the package has the rank-ordered
+#: sum) the gradients' allreduce through ``allreduce_gradients`` against
+#: NCCL's own allreduce of the same fused buffers, in turns.  Writes
+#: JSON to OUT.
+DP4_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import training
+from horovod_tpu_torch.models import Transformer, init_params
+from horovod_tpu_torch.models import transformer as tm
+from horovod_tpu_torch.ops import collective_ops
+from horovod_tpu_torch.ops.fusion import FusionPlan, fuse, fusion_threshold
+
+(rank, world, store, out, device, preset, b, s, steps, seed,
+ reps) = sys.argv[1:12]
+rank, world, b, s, steps, seed, reps = map(int, (rank, world, b, s, steps,
+                                                 seed, reps))
+cpu = device == "cpu"
+if cpu:
+    torch.set_num_threads(1)
+hvd.init(device="cpu" if cpu else None, rank=rank, size=world,
+         init_method="file://" + store)
+dev = hvd.device()
+cfg = getattr(tm, preset)(dtype=torch.float32 if cpu else torch.bfloat16,
+                          attention_impl="flash")
+toks = torch.as_tensor(np.random.RandomState(seed + rank).randint(
+    0, cfg.vocab_size, size=(b, s + 1)), dtype=torch.long, device=dev)
+x, y = toks[:, :-1], toks[:, 1:]
+
+
+def sync():
+    if not cpu:
+        torch.cuda.synchronize()
+
+
+def model():
+    return Transformer(cfg, params=init_params(
+        cfg, torch.Generator(dev.type).manual_seed(seed), device=dev,
+        param_dtype=torch.float32))
+
+
+def adamw(ps):
+    return torch.optim.AdamW(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+res = {"variants": {}}
+variants = ["plain"] + (["overlap", "zero"] if hasattr(
+    training, "zero_train_setup") else [])
+for tag in variants:
+    m = model()
+    if tag == "zero":
+        state, step = training.zero_train_setup(m, adamw(m.parameters()))
+    else:
+        opt = adamw(m.parameters())
+        state = training.create_train_state(m, opt)
+        step = (training.data_parallel_train_step(m, opt, overlap=True)
+                if tag == "overlap" else
+                training.data_parallel_train_step(m, opt))
+    losses, times = [], []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    res["variants"][tag] = dict(losses=losses, step_s=times)
+    res["grad_bytes"] = sum(p.numel() * 4 for p in m.parameters())
+    shapes = [p.shape for p in m.parameters()]
+    del state, step, m
+    if not cpu:
+        torch.cuda.empty_cache()
+
+if hasattr(collective_ops, "_sum_async"):
+    g = torch.Generator(dev.type).manual_seed(seed + rank)
+    grads = [torch.randn(sh, generator=g, device=dev) for sh in shapes]
+
+    def library():
+        # NCCL's (gloo's) own allreduce of the fused buffers, then the
+        # division: what the step ran before the rank-ordered sum
+        plan = FusionPlan(grads, fusion_threshold())
+        bufs = fuse(grads, plan)
+        for w in [dist.all_reduce(t, async_op=True) for t in bufs]:
+            w.wait()
+        return [t / world for t in bufs]
+
+    def port():
+        # the rank-ordered sum of the gradient reductions
+        return hvd.allreduce_gradients(grads, op=hvd.Average)
+
+    timing = {"library": [], "port": []}
+    for i in range(2 * reps):
+        name = ("library", "port", "port", "library")[i % 4]
+        sync()
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        fn = library if name == "library" else port
+        fn()
+        sync()
+        timing[name].append(time.perf_counter() - t0)
+    res["allreduce_s"] = timing
+with open(out, "w") as f:
+    json.dump(res, f)
+hvd.shutdown()
+"""
+
+
+def _spawn_dp4(root, device, preset, b, s, steps, reps, world=4,
+               timeout=900):
+    """Run DP4_WORKER as ``world`` ranks with ``root``'s package; each
+    rank's JSON, in rank order."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        env = dict(os.environ, PYTHONPATH=root)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP4_WORKER, str(r), str(world),
+             os.path.join(tmp, "store"), outs[r], device, preset, str(b),
+             str(s), str(steps), str(SEED), str(reps)], cwd=root, env=env)
+            for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert rcs == [0] * world, f"dp4 ranks exited {rcs} ({root})"
+        recs = []
+        for o in outs:
+            with open(o) as f:
+                recs.append(json.load(f))
+        return recs
+
+
+def _steady(times):
+    steady = times[1:]
+    return (sum(steady) / len(steady), sorted(steady)[len(steady) // 2])
+
+
+def phase_dp4(roots, device="cuda", preset="gpt_small", b=TRAIN_B,
+              s=TRAIN_S, steps=TRAIN_STEPS, reps=4):
+    """gpt_small data-parallel training on four cards over NCCL, each
+    rank on its own seeded B x S batch, once for each package root in
+    ``roots`` (in that order: e.g. parent, change, change, parent):
+    the plain step, and where the package has them the overlapped and
+    ZeRO steps, 10 steps each; step time (rank 0's steady mean and
+    median, and the slowest rank's mean) and tokens/s of the global
+    batch.  Every rank's losses must be equal; the overlapped step's
+    losses bit-identical to the plain step's, ZeRO's within
+    ZERO_LOSS_REL_TOL.  Where the package has the rank-ordered sum, the
+    gradients' allreduce (fp32, gpt_small's parameter shapes) through
+    ``allreduce_gradients`` is timed against NCCL's allreduce of the
+    same fused buffers, in turns."""
+    world = 4
+    if device == "cuda":
+        import torch
+
+        assert torch.cuda.device_count() >= world, (
+            f"dp4 needs {world} cards, found {torch.cuda.device_count()}")
+    runs = []
+    for root in roots:
+        root = os.path.abspath(root)
+        if device == "cuda":
+            subprocess.run([sys.executable, "-c",
+                            "from horovod_tpu_torch.ops import _build; "
+                            "_build.build_all()"], cwd=root, check=True,
+                           env=dict(os.environ, PYTHONPATH=root))
+        recs = _spawn_dp4(root, device, preset, b, s, steps, reps, world)
+        run = dict(root=root, variants={})
+        for tag, v in recs[0]["variants"].items():
+            for r in recs[1:]:
+                assert r["variants"][tag]["losses"] == v["losses"], (
+                    f"{tag}: ranks disagree on the losses")
+            assert all(math.isfinite(x) for x in v["losses"]), v["losses"]
+            mean, median = _steady(v["step_s"])
+            slowest = max(_steady(r["variants"][tag]["step_s"])[0]
+                          for r in recs)
+            run["variants"][tag] = dict(
+                losses=v["losses"], step_ms_mean=mean * 1e3,
+                step_ms_median=median * 1e3, slowest_rank_ms_mean=slowest
+                * 1e3, tokens_per_s=world * b * s / mean)
+        var = run["variants"]
+        if "overlap" in var:
+            assert var["overlap"]["losses"] == var["plain"]["losses"], (
+                var["overlap"]["losses"], var["plain"]["losses"])
+        if "zero" in var:
+            errs = [abs(a - c) / abs(c) for a, c in
+                    zip(var["zero"]["losses"], var["plain"]["losses"])]
+            assert max(errs) <= ZERO_LOSS_REL_TOL, errs
+            var["zero"]["loss_rel_err_vs_plain"] = max(errs)
+        if "allreduce_s" in recs[0]:
+            run["allreduce_ms_median"] = {
+                k: sorted(t)[len(t) // 2] * 1e3
+                for k, t in recs[0]["allreduce_s"].items()}
+            run["grad_bytes"] = recs[0]["grad_bytes"]
+        log("  dp4: " + json.dumps(run))
+        runs.append(run)
+    return runs
+
+
+PHASES = ("kernels", "serving", "oracle", "training", "overlap", "zero",
+          "training_oracle", "resnet", "resnet_oracle")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -1974,6 +2429,9 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--roots", default=HERE,
+                    help="dp4: package roots to run in turns, comma-"
+                         "separated (e.g. parent,.,.,parent)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -2023,9 +2481,17 @@ def main(argv=None) -> int:
     if "oracle" in phases:
         log("phase oracle:")
         oracle = phase_oracle()
-    if "training" in phases:
+    overlap = zero = None
+    if {"training", "overlap", "zero"} & set(phases):
+        # the overlap and zero phases are held against its losses
         log("phase training:")
         train = phase_training()
+    if "overlap" in phases:
+        log("phase overlap:")
+        overlap = phase_overlap(train)
+    if "zero" in phases:
+        log("phase zero:")
+        zero = phase_zero(train)
     if "training_oracle" in phases:
         log("phase training_oracle:")
         train_oracle = phase_training_oracle()
@@ -2035,6 +2501,13 @@ def main(argv=None) -> int:
     if "resnet_oracle" in phases:
         log("phase resnet_oracle:")
         phase_resnet_oracle()
+    if "dp4" in phases:
+        log("phase dp4:")
+        phase_dp4(args.roots.split(","))
+    if train is not None:  # the training kernels ran on three main paths
+        train = dict(train, launches={k: sum(
+            r["launches"][k] for r in (train, overlap, zero) if r)
+            for k in train["launches"]})
     entries = (kernel_entries(kern, train_kern, serving, train,
                               train_oracle, oracle)
                + bn_entries(bn_kern, resnet))

@@ -19,7 +19,12 @@ batching, chunked prefill, prefix cache) and data-parallel training
 allreduce → optimizer update; ``training``, ``optim``), one process per
 GPU as in the original Horovod, and the ResNet workload
 (``models.resnet``, every BatchNorm through the fused
-BN(+residual)+ReLU kernels of ``ops.fused_norm``; ``SyncBatchNorm``).  Entry points run on the card unless
+BN(+residual)+ReLU kernels of ``ops.fused_norm``; ``SyncBatchNorm``),
+and the rest of Horovod's training API: process sets, every collective
+with Adasum, the hook-driven ``DistributedOptimizer`` that reduces each
+gradient bucket inside the backward, gradient compression, and ZeRO
+stage 1 (``ZeroDistributedOptimizer``, ``training.zero_train_setup``).
+Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.
 """
@@ -49,11 +54,15 @@ from .common.basics import (
     size,
     xla_built,
 )
+from .common import basics as _basics
 from .common.exceptions import (
     HorovodInternalError,
     HorovodTpuError,
     HostsUpdatedInterrupt,
+    ProcessSetError,
 )
+from .common.process_sets import ProcessSet, global_process_set
+from .compression import Compression
 from .functions import (
     allgather_object,
     broadcast_object,
@@ -63,13 +72,23 @@ from .functions import (
 from .ops.collective_ops import (
     Handle,
     allgather,
+    allgather_async,
     allreduce,
     allreduce_async,
+    alltoall,
+    alltoall_async,
     barrier,
     broadcast,
+    broadcast_async,
+    grouped_allgather,
     grouped_allreduce,
+    grouped_allreduce_async,
+    grouped_reducescatter,
+    grouped_reducescatter_async,
+    join,
     poll,
     reducescatter,
+    reducescatter_async,
     synchronize,
 )
 from .ops.flash_attention import flash_attention
@@ -77,6 +96,7 @@ from .ops.fused_norm import fused_batch_norm_act
 from .ops.reduce_ops import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 from .optim import (
     DistributedOptimizer,
+    ZeroDistributedOptimizer,
     allreduce_gradients,
     with_gradient_accumulation,
 )
@@ -84,3 +104,24 @@ from .sync_batch_norm import SyncBatchNorm
 from . import trace
 
 __version__ = "0.2.0"
+
+
+def add_process_set(ranks) -> ProcessSet:
+    """Register a process set over ``ranks`` (a list of world ranks or a
+    :class:`ProcessSet`; reference: horovod/common/process_sets.py
+    add_process_set).  Every process must call it, members or not, with
+    the same sets in the same order."""
+    st = _basics._require_init()
+    ps = ranks if isinstance(ranks, ProcessSet) else ProcessSet(ranks)
+    return st.process_set_registry.add(ps)
+
+
+def remove_process_set(process_set: ProcessSet) -> None:
+    """Unregister a process set (reference: remove_process_set); called
+    symmetrically, like :func:`add_process_set`."""
+    _basics._require_init().process_set_registry.remove(process_set)
+
+
+def process_set_ids():
+    """The ids of the registered process sets (0 is the world)."""
+    return _basics._require_init().process_set_registry.ids()

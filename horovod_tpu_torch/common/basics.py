@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from ..utils.logging import get_logger
 from .exceptions import NotInitializedError
+from .process_sets import ProcessSetRegistry
 
 
 class _State:
@@ -47,6 +48,7 @@ class _State:
         self.device: Optional[torch.device] = None
         self.backend: Optional[str] = None
         self.store_dir: Optional[str] = None
+        self.process_set_registry = ProcessSetRegistry()
 
 
 _state = _State()
@@ -98,6 +100,7 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.device, _state.backend = dev, backend
+        _state.process_set_registry.attach_world(size)
         _state.initialized = True
         get_logger().info("initialized: rank %d of %d on %s (%s)",
                           rank, size, dev, backend)
@@ -132,6 +135,7 @@ def shutdown() -> None:
     with _state.lock:
         if not _state.initialized:
             return
+        _state.process_set_registry.detach()
         if dist.is_initialized():
             dist.destroy_process_group()
         if _state.store_dir is not None:

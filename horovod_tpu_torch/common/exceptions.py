@@ -35,3 +35,8 @@ class NotInitializedError(HorovodTpuError):
         super().__init__(
             f"{what} has not been initialized; call "
             f"horovod_tpu_torch.init() first.")
+
+
+class ProcessSetError(HorovodTpuError):
+    """An invalid process-set operation (reference: horovod/common/
+    exceptions.py)."""

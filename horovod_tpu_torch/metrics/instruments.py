@@ -1,10 +1,10 @@
 """The port's metric instruments, in one place.
 
 Copied from ``horovod_tpu/metrics/instruments.py``: the instruments the
-serving slice books, under the same names, label sets and buckets (the
-catalogue in docs/METRICS.md describes them).  The collective, data,
-fleet, guard and elastic instruments arrive with the slices that book
-them.
+serving slice, the overlapped optimizer and ZeRO book, under the same
+names, label sets and buckets (the catalogue in docs/METRICS.md
+describes them).  The collective, data, fleet, guard and elastic
+instruments arrive with the slices that book them.
 """
 
 from __future__ import annotations
@@ -98,4 +98,49 @@ SERVE_DEADLINE_EXCEEDED = counter(
 SERVE_KV_BLOCKS_PER_SHARD = gauge(
     "hvd_tpu_serve_kv_blocks_per_shard",
     "KV blocks resident on each shard of the tensor-sharded pool",
+)
+
+# -- backward/collective overlap (optim.DistributedOptimizer, ops/overlap.py) -
+
+#: How early each bucket's collective launches: parameters still awaiting
+#: their gradients when the hook launched it (0 = it trailed the backward).
+OVERLAP_LAUNCH_LEAD = histogram(
+    "hvd_tpu_overlap_bucket_launch_lead",
+    "Backward compute remaining when a bucket's collective launches "
+    "(compute ops after launch; torch: params still pending)",
+    buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128),
+)
+
+#: Bucket-size/tier trials the BucketAutotuner has scored.
+OVERLAP_AUTOTUNE_TRIALS = counter(
+    "hvd_tpu_overlap_autotune_trials_total",
+    "Bucket-schedule candidates scored by the overlap autotuner",
+)
+
+#: The pinned (converged) bucket size; 0 until convergence.
+OVERLAP_AUTOTUNE_PINNED_BYTES = gauge(
+    "hvd_tpu_overlap_autotune_pinned_bucket_bytes",
+    "Bucket bytes of the overlap autotuner's pinned winning plan",
+)
+
+# -- sharded optimizer (optim.py ZeRO wrapper) --------------------------------
+
+#: Flattened-gradient bytes submitted to the ZeRO reduce-scatter (padded
+#: buffer bytes per exchange; incremented at submission).
+OPTIM_RS_BYTES = counter(
+    "hvd_tpu_optim_reducescatter_bytes_total",
+    "Flattened gradient bytes submitted to the ZeRO reduce-scatter",
+)
+
+#: Updated-parameter shard bytes submitted to the ZeRO allgather.
+OPTIM_AG_BYTES = counter(
+    "hvd_tpu_optim_allgather_bytes_total",
+    "Updated parameter-shard bytes submitted to the ZeRO allgather",
+)
+
+#: This rank's sharded optimizer-state bytes (the ZeRO partition — about
+#: 1/world_size of the replicated state; set after the first step).
+OPTIM_STATE_SHARD_BYTES = gauge(
+    "hvd_tpu_optim_state_shard_bytes",
+    "Sharded optimizer-state bytes held by this rank (ZeRO partition)",
 )

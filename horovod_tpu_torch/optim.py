@@ -1,14 +1,26 @@
 """Distributed optimizers: gradient reduction around a torch optimizer.
 
 Port of ``horovod_tpu/optim.py`` (``allreduce_gradients``,
-``DistributedOptimizer``, ``with_gradient_accumulation``) with the
+``DistributedOptimizer``, ``with_gradient_accumulation``, ZeRO stage 1:
+``ZeroPlan``, ``state_bytes``, ``ZeroDistributedOptimizer``) with the
 contract of the reference's PyTorch ``DistributedOptimizer``
-(``horovod_tpu/torch/optimizer.py``): the user runs ``backward_passes_
-per_step`` backward passes, then ``step()`` reduces the accumulated
-gradients across ranks and steps the wrapped optimizer.  The reduction
-runs after the backward, through fused buckets (:mod:`.ops.fusion`);
-launching it from gradient hooks inside the backward, so that it
-overlaps, is the overlap slice's work.
+(``horovod_tpu/torch/optimizer.py``).
+
+``DistributedOptimizer`` is driven by hooks, Horovod's own hot path: a
+post-accumulate-grad hook on every parameter counts the backward passes,
+and when a parameter's last pass lands it is ready; when the last
+parameter of a :class:`~.ops.fusion.BucketSchedule` bucket is ready, the
+hook fuses the bucket and launches its allreduce (``async_op=True``)
+there, inside the backward, while autograd goes on with the earlier
+layers.  Buckets launch strictly in the schedule's order, so every rank
+issues the same collectives in the same order whatever order its own
+hooks fire in.  ``synchronize()`` waits for them and writes the reduced
+gradients into ``.grad``.  The reference's submission thread is not
+needed: NCCL and gloo works are already asynchronous, and launching
+from the hook on the autograd thread is what PyTorch's own DDP does.
+The hooks run on the stream that produced the gradients, and an NCCL
+collective orders itself after that stream, so a bucket is fused and
+reduced only once its gradients exist.
 
 The wrappers update the model's parameters in place, as torch
 optimizers do (the JAX package returns new pytrees).
@@ -17,46 +29,188 @@ optimizers do (the JAX package returns new pytrees).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import warnings
-from typing import Any, List, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import trace as _trace
+from .common.retry import env_int
+from .compression import Compression
+from .metrics import instruments as _metrics
 from .ops import collective_ops
+from .ops.fusion import BucketSchedule, dtype_name, fusion_threshold
 from .ops.reduce_ops import Average, ReduceOp
+from .utils.env_parser import Config
 
 
 def allreduce_gradients(grads: Any, op: ReduceOp = Average,
                         prescale_factor: float = 1.0,
-                        postscale_factor: float = 1.0) -> Any:
+                        postscale_factor: float = 1.0,
+                        process_set=None) -> Any:
     """Reduce a tensor / list / dict of gradients across ranks through
     per-dtype fused buckets; returns the reduced tree (Average = SUM,
-    then a division by ``size()`` in the gradients' dtype)."""
-    return collective_ops.allreduce(grads, op=op,
-                                    prescale_factor=prescale_factor,
-                                    postscale_factor=postscale_factor)
+    then a division by the set's size in the gradients' dtype).  A
+    floating sum adds the ranks in rank order, as the optimizers'
+    buckets do, so the bits do not depend on the buckets."""
+    return collective_ops._allreduce_async(
+        grads, ReduceOp(op), prescale_factor, postscale_factor, process_set,
+        ordered=True).wait()
 
 
-def _params_with_grad(param_groups) -> List[torch.nn.Parameter]:
-    return [p for g in param_groups for p in g["params"]
-            if p.grad is not None]
+def _unique(params: Iterable[torch.Tensor]) -> List[torch.Tensor]:
+    seen, out = set(), []
+    for p in params:
+        if p.requires_grad and id(p) not in seen:
+            seen.add(id(p))
+            out.append(p)
+    return out
 
 
-def reduce_param_grads(params: Sequence[torch.nn.Parameter],
-                       op: ReduceOp = Average, prescale_factor: float = 1.0,
-                       postscale_factor: float = 1.0,
-                       divide_by: int = 1) -> None:
-    """Replace each parameter's ``.grad`` by its reduction across ranks
-    (after a local division by ``divide_by``, the count of accumulated
-    backward passes)."""
-    params = [p for p in params if p.grad is not None]
-    grads = [p.grad for p in params]
-    if divide_by > 1:
-        grads = [g / divide_by for g in grads]
-    reduced = allreduce_gradients(grads, op, prescale_factor,
-                                  postscale_factor)
-    for p, g in zip(params, reduced):
-        p.grad = g
+class _BucketReducer:
+    """Bucketed gradient reduction of a parameter list (in registration
+    order) with ``op`` over ``process_set``, launched from
+    post-accumulate-grad hooks (``overlap=True``) or after the backward
+    (``overlap=False``: :meth:`synchronize` issues every bucket).
+
+    The :class:`~.ops.fusion.BucketSchedule` owns the layout: each
+    bucket is fused once into a flat buffer (zero-padded to a multiple
+    of the set's size), reduced as one buffer, and its slices become the
+    reduced ``.grad`` views.  ``bucket_bytes`` defaults to
+    ``HVD_TPU_OVERLAP_BUCKET_BYTES`` with overlap and to the fusion
+    threshold without.  ``always_armed=False`` makes the hooks act only
+    inside :meth:`backward`, so a training step's hooks never fire for
+    another loop's backward over the same model."""
+
+    def __init__(self, params: Iterable[torch.Tensor], *,
+                 op: ReduceOp = Average, process_set=None,
+                 bucket_bytes: Optional[int] = None,
+                 compression=Compression.none,
+                 backward_passes_per_step: int = 1,
+                 gradient_predivide_factor: float = 1.0,
+                 overlap: bool = True, always_armed: bool = True):
+        if backward_passes_per_step < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
+        if bucket_bytes is None:
+            bucket_bytes = (Config.from_env().overlap_bucket_bytes if overlap
+                            else fusion_threshold())
+        self.params = _unique(params)
+        self.schedule = BucketSchedule(self.params, bucket_bytes)
+        self._op = ReduceOp(op)
+        self._process_set = process_set
+        self._group, self._n, self._me = collective_ops._scope(process_set)
+        self._compression = compression
+        self._passes_per_step = backward_passes_per_step
+        self._predivide = gradient_predivide_factor
+        self._index = {id(p): i for i, p in enumerate(self.params)}
+        self._bucket_of = [0] * len(self.params)
+        for b, (_, idxs) in enumerate(self.schedule.buckets):
+            for i in idxs:
+                self._bucket_of[i] = b
+        self._armed = always_armed
+        #: per bucket of the last step: (bucket, parameters ready when it
+        #: launched, launched from a hook)
+        self.last_launches: List[Tuple[int, int, bool]] = []
+        self._reset()
+        self._hook_handles = []
+        if overlap:
+            self._hook_handles = [p.register_post_accumulate_grad_hook(
+                self._hook) for p in self.params]
+
+    def _reset(self) -> None:
+        nb = self.schedule.num_buckets
+        self._passes = [0] * len(self.params)
+        self._remaining = [len(idxs) for _, idxs in self.schedule.buckets]
+        self._handles: List[Optional[tuple]] = [None] * nb
+        self._next = 0
+        self._ready = 0
+        self._launches: List[Tuple[int, int, bool]] = []
+
+    @property
+    def pending(self) -> bool:
+        """A gradient was marked ready or a bucket launched since the
+        last :meth:`synchronize`."""
+        return self._ready > 0 or self._next > 0
+
+    def _hook(self, p: torch.Tensor) -> None:
+        if not self._armed:
+            return
+        i = self._index[id(p)]
+        self._passes[i] += 1
+        if self._passes[i] < self._passes_per_step:
+            return
+        if self._passes[i] > self._passes_per_step:
+            raise RuntimeError(
+                "gradients were computed more than backward_passes_per_step "
+                "times before the optimizer stepped or synchronized")
+        self._ready += 1
+        b = self._bucket_of[i]
+        self._remaining[b] -= 1
+        while (self._next < self.schedule.num_buckets
+               and self._remaining[self._next] == 0):
+            self._launch(self._next, from_hook=True)
+
+    def _launch(self, b: int, from_hook: bool) -> None:
+        idxs = self.schedule.buckets[b][1]
+        grads = [self.params[i].grad for i in idxs]
+        parts = [(torch.zeros_like(self.params[i]) if g is None else g
+                  ).reshape(-1) for i, g in zip(idxs, grads)]
+        pad = (-sum(x.numel() for x in parts)) % self._n
+        if pad:
+            parts.append(parts[0].new_zeros(pad))
+        flat = torch.cat(parts)
+        if self._passes_per_step > 1:
+            flat /= self._passes_per_step
+        if self._predivide != 1.0:
+            flat /= self._predivide
+        flat, ctx = self._compression.compress(flat)
+        with _trace.span("overlap.bucket", bucket=b, params=len(idxs)):
+            works, result = collective_ops._allreduce_flat_async(
+                flat, self._op, self._group, self._n, self._me,
+                self._process_set, ordered=True)
+        # launch lead: parameters still awaiting gradients at this launch
+        _metrics.OVERLAP_LAUNCH_LEAD.observe(len(self.params) - self._ready)
+        self._handles[b] = (collective_ops.Handle(works, result), ctx,
+                            [g is not None for g in grads])
+        self._launches.append((b, self._ready, from_hook))
+        self._next = b + 1
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """``loss.backward()`` with the hooks armed."""
+        self._armed = True
+        try:
+            loss.backward()
+        finally:
+            self._armed = False
+
+    def synchronize(self) -> None:
+        """Launch the buckets no hook launched (all of them without
+        overlap; those holding a parameter that got no gradient), wait
+        for every bucket and write the reduced gradients into
+        ``.grad`` (a parameter without one keeps ``None``)."""
+        for b in range(self._next, self.schedule.num_buckets):
+            self._launch(b, from_hook=False)
+        for (handle, ctx, had_grad), (_, idxs) in zip(
+                self._handles, self.schedule.buckets):
+            flat = self._compression.decompress(handle.wait(), ctx)
+            if self._predivide != 1.0:
+                flat = flat * self._predivide
+            off = 0
+            for i, had in zip(idxs, had_grad):
+                p = self.params[i]
+                g = flat[off:off + p.numel()].view(p.shape)
+                off += p.numel()
+                if had:
+                    p.grad = g if g.dtype == p.dtype else g.to(p.dtype)
+        self.last_launches = self._launches
+        self._reset()
+
+    def close(self) -> None:
+        """Remove the hooks."""
+        for h in self._hook_handles:
+            h.remove()
+        self._hook_handles = []
 
 
 class _Wrapper:
@@ -75,36 +229,51 @@ class _Wrapper:
 
 class DistributedOptimizer(_Wrapper):
     """Wrap a ``torch.optim.Optimizer`` so that ``step()`` sees gradients
-    reduced across ranks (reference: horovod/torch/optimizer.py).
+    reduced across ranks, each bucket launched from the backward's hooks
+    (reference: horovod/torch/optimizer.py DistributedOptimizer).
 
-    ``op`` (Average, Sum, Min, Max, Product), ``prescale_factor`` and
-    ``postscale_factor`` go to the allreduce; with
+    ``op``: Average, Sum or Adasum (Min / Max / Product reduce too).
+    ``named_parameters`` names the parameters (accepted for the
+    reference's signature: buckets depend only on the parameters' specs
+    and order).  ``compression`` casts each gradient to a 16-bit wire
+    type around the reduction.  ``gradient_predivide_factor`` f divides
+    the gradients by f before the reduction and multiplies them by f
+    after it.  ``process_set`` scopes the reduction.  With
     ``backward_passes_per_step=k`` the caller runs k backward passes
-    (their gradients add up in ``.grad``) before each ``step()``, which
-    reduces their mean.  ``synchronize()`` reduces without stepping
-    (for clipping), and ``skip_synchronize()`` makes the next ``step()``
-    use the gradients as they stand."""
+    (their gradients add up in ``.grad``), and the k-th launches the
+    buckets, which reduce the mean.  ``synchronize()`` waits for the
+    reduction without stepping (for clipping), and
+    ``skip_synchronize()`` makes the next ``step()`` use the gradients
+    as they stand.  The bucket size is ``HVD_TPU_OVERLAP_BUCKET_BYTES``
+    (4 MiB); ``close()`` removes the hooks."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 op: ReduceOp = Average, prescale_factor: float = 1.0,
-                 postscale_factor: float = 1.0,
-                 backward_passes_per_step: int = 1):
+                 named_parameters: Optional[
+                     Iterable[Tuple[str, torch.nn.Parameter]]] = None,
+                 compression=Compression.none,
+                 backward_passes_per_step: int = 1,
+                 op: ReduceOp = Average,
+                 gradient_predivide_factor: float = 1.0,
+                 process_set=None):
         super().__init__(optimizer)
-        if backward_passes_per_step < 1:
-            raise ValueError("backward_passes_per_step must be >= 1")
-        self.op = op
-        self.prescale_factor = prescale_factor
-        self.postscale_factor = postscale_factor
+        if named_parameters is not None:
+            named = list(named_parameters)
+            if any(not isinstance(n, str) for n, _ in named):
+                raise ValueError("named_parameters must be (name, "
+                                 "parameter) pairs")
+        params = [p for g in optimizer.param_groups for p in g["params"]]
         self.backward_passes_per_step = backward_passes_per_step
+        self._reducer = _BucketReducer(
+            params, op=op, process_set=process_set, compression=compression,
+            backward_passes_per_step=backward_passes_per_step,
+            gradient_predivide_factor=gradient_predivide_factor)
         self._synchronized = False
         self._should_synchronize = True
 
     def synchronize(self) -> None:
-        """Reduce every parameter's gradient across ranks, in place."""
-        reduce_param_grads(_params_with_grad(self.optimizer.param_groups),
-                           self.op, self.prescale_factor,
-                           self.postscale_factor,
-                           divide_by=self.backward_passes_per_step)
+        """Wait for every bucket's reduction and install the reduced
+        gradients (reference: _DistributedOptimizer.synchronize)."""
+        self._reducer.synchronize()
         self._synchronized = True
 
     @contextlib.contextmanager
@@ -127,6 +296,18 @@ class DistributedOptimizer(_Wrapper):
         self._synchronized = False
         return self.optimizer.step(closure)
 
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        if self._reducer.pending:
+            raise AssertionError(
+                "optimizer.zero_grad() was called after loss.backward() but "
+                "before optimizer.step() or optimizer.synchronize()")
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def close(self) -> None:
+        """Remove the gradient hooks; the wrapped optimizer goes on as a
+        plain local one."""
+        self._reducer.close()
+
 
 class _GradientAccumulation(_Wrapper):
     """``optax.MultiSteps`` over a torch optimizer: each ``step()`` folds
@@ -145,12 +326,15 @@ class _GradientAccumulation(_Wrapper):
     def step(self, closure=None):
         n = self.mini_step
         with torch.no_grad():
-            for p in _params_with_grad(self.optimizer.param_groups):
-                acc = self._acc.get(p)
-                if acc is None:
-                    acc = torch.zeros_like(p.grad)
-                # optax's Welford mean: acc + (g - acc) / (n + 1)
-                self._acc[p] = acc + (p.grad - acc) / (n + 1)
+            for g in self.optimizer.param_groups:
+                for p in g["params"]:
+                    if p.grad is None:
+                        continue
+                    acc = self._acc.get(p)
+                    if acc is None:
+                        acc = torch.zeros_like(p.grad)
+                    # optax's Welford mean: acc + (g - acc) / (n + 1)
+                    self._acc[p] = acc + (p.grad - acc) / (n + 1)
         self.mini_step = (n + 1) % self.every_k
         if self.mini_step:
             return None
@@ -166,3 +350,265 @@ def with_gradient_accumulation(optimizer, every_k: int):
     that ``training.data_parallel_train_step`` drives (its gradients
     are then reduced every microbatch, as in the JAX package)."""
     return _GradientAccumulation(optimizer, every_k)
+
+
+# -- ZeRO stage 1 -------------------------------------------------------------
+#
+# The partition is flat: the parameters are raveled into one 1-D buffer
+# per dtype (a ZeroPlan, a pure function of the parameters' specs, so
+# every rank partitions identically), zero-padded so each buffer divides
+# by the world size.  The wrapped optimizer steps 1-D slices, which is
+# exact for every elementwise optimizer (SGD, momentum, Adam(W), RMSprop):
+# per element the arithmetic is the replicated form's, so sharded and
+# replicated updates are bit-equal given bit-equal reduced gradients.
+# Optimizers that couple elements across tensors (global-norm clipping,
+# factored second moments) would compute per-shard statistics; apply
+# those before the wrapper.
+
+
+class ZeroPlan:
+    """Deterministic flat partition of a list of tensors for ZeRO
+    sharding (port of ``horovod_tpu/optim.py::ZeroPlan``): the leaves
+    group into one 1-D buffer per dtype, sorted by dtype name, each
+    zero-padded to a multiple of ``world`` so every rank's shard has the
+    same size."""
+
+    def __init__(self, leaves: Sequence[Any], world: int):
+        self.world = int(world)
+        self.specs = [(tuple(x.shape), x.dtype) for x in leaves]
+        self.sizes = [int(torch.Size(s).numel()) for s, _ in self.specs]
+        by_dtype: Dict[str, List[int]] = {}
+        for i, (_, dt) in enumerate(self.specs):
+            by_dtype.setdefault(dtype_name(dt), []).append(i)
+        #: [(dtype name, leaf indices)] in sorted dtype-name order
+        self.buckets: List[Tuple[str, List[int]]] = sorted(by_dtype.items())
+        self.bucket_sizes = [sum(self.sizes[i] for i in idxs)
+                             for _, idxs in self.buckets]
+        self.shard_sizes = [-(-n // self.world) if n else 0
+                            for n in self.bucket_sizes]
+        self.padded_sizes = [s * self.world for s in self.shard_sizes]
+
+    def _itemsize(self, b: int) -> int:
+        return getattr(torch, self.buckets[b][0]).itemsize
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(n * self._itemsize(b)
+                   for b, n in enumerate(self.bucket_sizes))
+
+    @property
+    def padded_bytes(self) -> int:
+        return sum(n * self._itemsize(b)
+                   for b, n in enumerate(self.padded_sizes))
+
+    @property
+    def shard_bytes(self) -> int:
+        return sum(n * self._itemsize(b)
+                   for b, n in enumerate(self.shard_sizes))
+
+    def flatten(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Ravel + concatenate + zero-pad each dtype bucket."""
+        out = []
+        for (_, idxs), padded in zip(self.buckets, self.padded_sizes):
+            parts = [leaves[i].reshape(-1) for i in idxs]
+            pad = padded - sum(p.numel() for p in parts)
+            if pad:
+                parts.append(parts[0].new_zeros(pad))
+            out.append(torch.cat(parts))
+        return out
+
+    def unflatten(self, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Inverse of :meth:`flatten` (padding dropped): views of the
+        buffers in the leaves' shapes."""
+        leaves: List[Any] = [None] * len(self.specs)
+        for (_, idxs), buf in zip(self.buckets, bufs):
+            off = 0
+            for i in idxs:
+                leaves[i] = buf[off:off + self.sizes[i]].view(
+                    self.specs[i][0])
+                off += self.sizes[i]
+        return leaves
+
+    def shards(self, leaves: Sequence[Optional[torch.Tensor]], me: int,
+               out: Optional[Sequence[torch.Tensor]] = None
+               ) -> List[torch.Tensor]:
+        """Rank ``me``'s slice of each flattened bucket, copied from the
+        leaves that overlap it (a ``None`` leaf and the padding read as
+        zeros) into ``out`` (new buffers when not given)."""
+        res = []
+        for b, ((_, idxs), s) in enumerate(zip(self.buckets,
+                                               self.shard_sizes)):
+            lo, hi = me * s, (me + 1) * s
+            if out is None:
+                dev = next(x.device for x in leaves if x is not None)
+                dst = torch.zeros(s, dtype=getattr(torch, self.buckets[b][0]),
+                                  device=dev)
+            else:
+                dst = out[b]
+            off = 0
+            for i in idxs:
+                a, z = max(lo, off), min(hi, off + self.sizes[i])
+                if a < z:
+                    src = leaves[i]
+                    if src is None:
+                        dst[a - lo:z - lo].zero_()
+                    else:
+                        dst[a - lo:z - lo].copy_(
+                            src.reshape(-1)[a - off:z - off])
+                off += self.sizes[i]
+            if off < hi:  # the padding
+                dst[max(off, lo) - lo:].zero_()
+            res.append(dst)
+        return res
+
+
+def state_bytes(tree: Any) -> int:
+    """Total tensor bytes of a tensor / list / tuple / dict tree (an
+    optimizer's ``state``, parameters, ...): the per-rank accounting of
+    the ZeRO partition."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(state_bytes(v) for v in tree)
+    return 0
+
+
+def _zero_min_bytes(explicit: Optional[int]) -> int:
+    """Sharding threshold: below this many total parameter bytes the
+    wrapper keeps replicated state and one allreduce
+    (``HVD_TPU_ZERO_MIN_BYTES``, default 0)."""
+    if explicit is not None:
+        return int(explicit)
+    return env_int("HVD_TPU_ZERO_MIN_BYTES", 0)
+
+
+class ZeroDistributedOptimizer(_Wrapper):
+    """ZeRO stage 1: each rank keeps the optimizer state of its 1/world
+    shard of the parameters (port of ``horovod_tpu/optim.py::
+    ZeroDistributedOptimizer``).
+
+    ``optimizer`` is a fresh torch optimizer over the model's
+    parameters; the wrapper rebuilds it, with each param group's
+    settings, over this rank's flat shards (one 1-D tensor per param
+    group and dtype, :class:`ZeroPlan`).  ``step()`` reduce-scatters the
+    flattened gradients (``grouped_reducescatter``), steps the shard
+    optimizer, and gathers the updated shards back into the parameters
+    (``all_gather_into_tensor``); the parameters stay replicated.
+
+    ``op``: Average or Sum.  ``backward_passes_per_step=k``: the caller
+    runs k backward passes before each ``step()``, which reduces their
+    mean.  ``min_total_bytes`` (default ``HVD_TPU_ZERO_MIN_BYTES``, 0):
+    below this many parameter bytes in all, the state stays replicated
+    and the gradients take one allreduce.  Unlike the JAX package's, the
+    flat path runs at world 1 as well (its state is then the whole
+    model's), so one card drives it.  ``hierarchical`` and
+    ``dcn_compression`` need the two-level collectives, not ported yet.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 op: ReduceOp = Average, process_set=None,
+                 backward_passes_per_step: int = 1,
+                 min_total_bytes: Optional[int] = None,
+                 hierarchical: Optional[bool] = None,
+                 dcn_compression=None):
+        if hierarchical or dcn_compression is not None:
+            raise NotImplementedError(
+                "hierarchical ZeRO and DCN compression need the two-level "
+                "collectives, which are not ported")
+        op = ReduceOp(op)
+        if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+            raise ValueError(f"ZeroDistributedOptimizer supports Sum/Average,"
+                             f" got {op!r}")
+        if backward_passes_per_step < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
+        super().__init__(optimizer)
+        self.op = op
+        self.process_set = process_set
+        self.backward_passes_per_step = backward_passes_per_step
+        _, self._world, self._me = collective_ops._scope(process_set)
+        self._groups = [_unique(g["params"]) for g in optimizer.param_groups]
+        self.plans = [ZeroPlan(ps, self._world) for ps in self._groups]
+        self.sharded = sum(p.total_bytes for p in self.plans) >= \
+            _zero_min_bytes(min_total_bytes)
+        self._flat_params = [p for ps in self._groups for p in ps]
+        if not self.sharded:
+            return
+        self._shards = [
+            [torch.nn.Parameter(s) for s in plan.shards(ps, self._me)]
+            for plan, ps in zip(self.plans, self._groups)]
+        groups = []
+        for g, shards in zip(optimizer.param_groups, self._shards):
+            opts = {k: v for k, v in g.items() if k != "params"}
+            groups.append(dict(opts, params=shards))
+        # every group carries all its settings; the constructor takes
+        # the ones it names (AdamW's defaults hold one it does not)
+        cls = type(optimizer)
+        named = inspect.signature(cls.__init__).parameters
+        self.optimizer = cls(groups, **{k: v for k, v in
+                                        optimizer.defaults.items()
+                                        if k in named})
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self._flat_params:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.detach_().zero_()
+
+    def _grads(self, ps: List[torch.Tensor]) -> List[torch.Tensor]:
+        k = self.backward_passes_per_step
+        return [torch.zeros_like(p) if p.grad is None else
+                (p.grad / k if k > 1 else p.grad) for p in ps]
+
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self._step(reduce=True)
+        return loss
+
+    def _step(self, reduce: bool) -> None:
+        """Reduce (or, with ``reduce=False``, take the already reduced
+        ``.grad``), step the shards, gather them into the parameters."""
+        if not self.sharded:
+            if reduce:
+                for ps in self._groups:
+                    for p, g in zip(ps, allreduce_gradients(
+                            self._grads(ps), self.op,
+                            process_set=self.process_set)):
+                        p.grad = g
+            self.optimizer.step()
+            return
+        for plan, ps, shards in zip(self.plans, self._groups, self._shards):
+            if reduce:
+                _metrics.OPTIM_RS_BYTES.inc(plan.padded_bytes)
+                g_shards = collective_ops.grouped_reducescatter(
+                    plan.flatten(self._grads(ps)), op=self.op,
+                    process_set=self.process_set)
+            else:
+                g_shards = plan.shards([p.grad for p in ps], self._me)
+            with torch.no_grad():
+                # the parameters may have been set since the last step
+                plan.shards([p.detach() for p in ps], self._me,
+                            out=[s.data for s in shards])
+            for s, g in zip(shards, g_shards):
+                s.grad = g
+        self.optimizer.step()
+        group, n, _ = collective_ops._scope(self.process_set)
+        with torch.no_grad():
+            for plan, ps, shards in zip(self.plans, self._groups,
+                                        self._shards):
+                _metrics.OPTIM_AG_BYTES.inc(plan.shard_bytes)
+                full = []
+                for s in shards:
+                    buf = s.new_empty(s.numel() * n)
+                    collective_ops._all_gather_flat(buf, s.detach(),
+                                                    group=group)
+                    full.append(buf)
+                    s.grad = None
+                for p, v in zip(ps, plan.unflatten(full)):
+                    p.copy_(v)
+        _metrics.OPTIM_STATE_SHARD_BYTES.set(state_bytes(self.optimizer.state))

@@ -31,8 +31,8 @@ __all__ = [
     "snapshot", "span",
 ]
 
-#: Span/event sites the port records (the serving and training subset
-#: of the JAX package's catalogue, same names).
+#: Span/event sites the port records (the serving, training and overlap
+#: subset of the JAX package's catalogue, same names).
 SITES = (
     "train.step",          # one training step (fit_epoch; global step)
     "serve.queued",        # request arrival -> admission (per request)
@@ -41,6 +41,8 @@ SITES = (
     "serve.first_decode",  # the decode step that emitted a first token
     "serve.first_token",   # first-token emission (instant; TTFT arg)
     "serve.finish",        # request completion (instant)
+    "overlap.bucket",      # one gradient bucket's collective call
+    "overlap.autotune",    # one autotuner trial scored (instant)
 )
 
 ENV_TRACE = "HVD_TPU_TRACE"

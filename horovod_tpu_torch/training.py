@@ -9,9 +9,12 @@ through ``torch.distributed`` (one process per GPU, see
 :mod:`.common.basics`).  The model and optimizer are updated in place;
 the state carries them and the step count.
 
-Not ported yet (queued in ROADMAP): ZeRO (``zero_train_setup``), the
-overlapped backward (``overlap=``), the integrity guard (``guard=``)
-and ``fit_epoch``'s checkpoint arguments.
+``overlap=True`` launches each gradient bucket's allreduce from the
+backward's hooks (``optim.DistributedOptimizer``'s machinery), and
+:func:`zero_train_setup` builds the ZeRO stage-1 trainer.  Not ported
+yet (queued in ROADMAP): the integrity guard (``guard=``), two-level
+ZeRO (``hierarchical=``, ``dcn_compression=``) and ``fit_epoch``'s
+checkpoint arguments.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from .functions import broadcast_optimizer_state, broadcast_parameters
 from .models.resnet import running_stats
 from .ops import collective_ops
 from .ops.reduce_ops import Average, ReduceOp
-from .optim import reduce_param_grads
+from .optim import ZeroDistributedOptimizer, _BucketReducer
 
 
 @dataclasses.dataclass
@@ -61,9 +64,29 @@ def create_train_state(model: torch.nn.Module, optimizer) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
+def _check_overlap(op: ReduceOp, stats) -> None:
+    """The reference's refusals for the overlapped step."""
+    if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+        raise ValueError(f"overlap supports Sum/Average gradient reduction, "
+                         f"got {op!r}")
+    if stats:
+        raise ValueError("overlap=True does not support models with running "
+                         "statistics (batch_stats)")
+
+
+def _average_stats(stats) -> None:
+    """Average BatchNorm running statistics across ranks, in place."""
+    if stats:
+        with torch.no_grad():
+            for t, avg in zip(stats, collective_ops.grouped_allreduce(
+                    stats, op=Average)):
+                t.copy_(avg)
+
+
 def data_parallel_train_step(model: torch.nn.Module, optimizer,
                              loss_fn: Callable = softmax_cross_entropy,
-                             op: ReduceOp = Average) -> Callable:
+                             op: ReduceOp = Average, overlap: bool = False,
+                             bucket_bytes: Optional[int] = None) -> Callable:
     """The data-parallel train step:
     ``step(state, inputs, labels) -> (state, loss)``.
 
@@ -72,11 +95,28 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
     optimizer (wrapping it in ``DistributedOptimizer`` as well would
     reduce twice).  ``loss`` is the rank-averaged loss, a 0-d tensor on
     the device (no host sync).  ``state`` must carry this ``model`` and
-    ``optimizer`` (:func:`create_train_state`).  A model with BatchNorm
-    running statistics has them averaged across ranks after the update
-    (replicas see different batches), in one grouped allreduce, as the
-    JAX step averages its ``batch_stats``."""
+    ``optimizer`` (:func:`create_train_state`).
+
+    The gradients reduce in the buckets of a
+    :class:`~.ops.fusion.BucketSchedule` over the model's parameters.
+    With ``overlap=True`` each bucket's allreduce launches from the hook
+    that completes it, inside the backward (``bucket_bytes``, default
+    ``HVD_TPU_OVERLAP_BUCKET_BYTES``); without, the buckets reduce after
+    the backward (default: the fusion threshold).  A floating sum adds
+    the ranks in one order whatever the buckets, so the two give
+    bit-equal gradients.  ``overlap=True`` takes Sum and Average
+    only, and no model with running statistics.  Without overlap, a
+    model with BatchNorm running statistics has them averaged across
+    ranks after the update (replicas see different batches), in one
+    grouped allreduce, as the JAX step averages its ``batch_stats``.
+    The step's reducer is ``step.reducer`` (its ``schedule`` and its
+    ``last_launches``)."""
     stats = running_stats(model)
+    if overlap:
+        _check_overlap(op, stats)
+    reducer = _BucketReducer(model.parameters(), op=op,
+                             bucket_bytes=bucket_bytes, overlap=overlap,
+                             always_armed=False)
 
     def step(state: TrainState, inputs, labels
              ) -> Tuple[TrainState, torch.Tensor]:
@@ -85,18 +125,75 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
                              "optimizer")
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model(inputs), labels)
-        loss.backward()
-        reduce_param_grads(list(model.parameters()), op)
+        reducer.backward(loss)
+        reducer.synchronize()
         optimizer.step()
-        if stats:
-            with torch.no_grad():
-                for t, avg in zip(stats, collective_ops.grouped_allreduce(
-                        stats, op=Average)):
-                    t.copy_(avg)
+        _average_stats(stats)
         loss = collective_ops.allreduce(loss.detach(), op=Average)
         return dataclasses.replace(state, step=state.step + 1), loss
 
+    step.reducer = reducer
     return step
+
+
+def zero_train_setup(model: torch.nn.Module, inner_optimizer,
+                     loss_fn: Callable = softmax_cross_entropy,
+                     op: ReduceOp = Average, hierarchical: bool = False,
+                     dcn_compression=None, overlap: bool = False,
+                     bucket_bytes: Optional[int] = None):
+    """Build a ZeRO stage-1 data-parallel trainer: ``(state, step)``.
+
+    The sharded sibling of :func:`create_train_state` +
+    :func:`data_parallel_train_step`: ``inner_optimizer`` (a fresh torch
+    optimizer over ``model``'s parameters) is wrapped in
+    :class:`~.optim.ZeroDistributedOptimizer`, so each rank keeps about
+    1/world of its state, and ``step(state, inputs, labels) -> (state,
+    loss)`` matches the data-parallel step's contract.  ``op``: Average
+    or Sum.
+
+    ``overlap=True`` allreduces the gradients in the buckets of a
+    :class:`~.ops.fusion.BucketSchedule` from the backward's hooks, as
+    the data-parallel step does, and the step takes this rank's shard of
+    them locally (the JAX package's ``pre_reduced`` path): the same bits
+    as the reduce-scatter, since a floating sum adds the ranks in one
+    order however its buffer is cut.  It takes no model with running
+    statistics.  The parameters start from rank 0's.  ``hierarchical``
+    and ``dcn_compression`` need the two-level collectives, which are
+    not ported.  The JAX version also
+    returns the optimizer state's sharding specs; the port has none to
+    return."""
+    broadcast_parameters(model, 0)  # the JAX version's state starts equal
+    zopt = ZeroDistributedOptimizer(inner_optimizer, op=op,
+                                    hierarchical=hierarchical,
+                                    dcn_compression=dcn_compression)
+    stats = running_stats(model)
+    reducer = None
+    if overlap:
+        _check_overlap(op, stats)
+        reducer = _BucketReducer(model.parameters(), op=op,
+                                 bucket_bytes=bucket_bytes,
+                                 always_armed=False)
+
+    def step(state: TrainState, inputs, labels
+             ) -> Tuple[TrainState, torch.Tensor]:
+        if state.model is not model or state.optimizer is not zopt:
+            raise ValueError("state does not carry this step's model and "
+                             "optimizer")
+        zopt.zero_grad(set_to_none=True)
+        loss = loss_fn(model(inputs), labels)
+        if reducer is None:
+            loss.backward()
+            zopt.step()
+        else:
+            reducer.backward(loss)
+            reducer.synchronize()
+            zopt._step(reduce=False)
+        _average_stats(stats)
+        loss = collective_ops.allreduce(loss.detach(), op=Average)
+        return dataclasses.replace(state, step=state.step + 1), loss
+
+    step.reducer = reducer
+    return TrainState(step=0, model=model, optimizer=zopt), step
 
 
 def fit_epoch(step: Callable, state: TrainState, loader,

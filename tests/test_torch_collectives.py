@@ -299,8 +299,8 @@ def test_world_one_lifecycle_and_errors(monkeypatch):
             hvd.allreduce(x, average=True, op=hvd.Sum)
         with pytest.raises(ValueError, match="prescale"):
             hvd.allreduce(x, op=hvd.Max, prescale_factor=2.0)
-        with pytest.raises(NotImplementedError, match="Adasum"):
-            hvd.allreduce(x, op=hvd.Adasum)
+        # Adasum is ported: over one rank it is the identity
+        assert torch.equal(hvd.allreduce(x, op=hvd.Adasum), x)
         with pytest.raises(ValueError, match="Sum and Average"):
             hvd.reducescatter(x, op=hvd.Min)
     finally:

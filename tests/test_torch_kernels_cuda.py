@@ -582,3 +582,216 @@ def test_resnet_grads_and_running_stats_on_card_match_cpu():
     bufs = dict(cpu.named_buffers())
     for name, t in card.named_buffers():
         assert float((t.cpu() - bufs[name]).abs().max()) <= 1e-4, name
+
+
+def _train_on_card(make_opt, *, zero=False, steps=3, **kw):
+    """A small bf16 flash transformer over fp32 masters trained at world
+    1 over NCCL on the card: (losses, parameters, step)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import Transformer
+
+    cfg = TransformerConfig(vocab_size=211, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=64, max_seq_len=128,
+                            dtype=torch.bfloat16, attention_impl="flash")
+    hvd.init()
+    try:
+        model = Transformer(cfg, params=init_params(
+            cfg, torch.Generator("cuda").manual_seed(0), "cuda",
+            param_dtype=torch.float32))
+        if zero:
+            state, step = training.zero_train_setup(
+                model, make_opt(model.parameters()), **kw)
+        else:
+            opt = make_opt(model.parameters())
+            state = training.create_train_state(model, opt)
+            step = training.data_parallel_train_step(model, opt, **kw)
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 211, (4, 129))).long().cuda()
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, toks[:, :-1], toks[:, 1:])
+            losses.append(float(loss))
+        return losses, [p.detach().clone() for p in model.parameters()], step
+    finally:
+        hvd.shutdown()
+
+
+def _sgd(ps):
+    return torch.optim.SGD(ps, lr=0.1, momentum=0.9)
+
+
+def test_overlapped_step_on_card_is_bit_equal_and_hooked():
+    """The hooked step (each bucket's NCCL allreduce launched from the
+    backward's hooks) gives the same bits as the step without overlap,
+    with every bucket launched from a hook, in order."""
+    _need_card()
+    base, base_params, _ = _train_on_card(_sgd, bucket_bytes=256 * 1024)
+    fwd = tfa.flash_fwd_cuda.sm90_launches
+    got, params, step = _train_on_card(_sgd, overlap=True,
+                                       bucket_bytes=256 * 1024)
+    assert tfa.flash_fwd_cuda.sm90_launches == fwd + 2 * 3
+    assert got == base
+    assert all(torch.equal(a, b) for a, b in zip(params, base_params))
+    launches = step.reducer.last_launches
+    assert [b for b, _, _ in launches] == list(
+        range(step.reducer.schedule.num_buckets))
+    assert step.reducer.schedule.num_buckets > 2
+    assert all(h for _, _, h in launches)
+    assert launches[0][1] < len(step.reducer.params)
+
+
+def test_zero_step_on_card_matches_replicated():
+    """ZeRO at world 1 on the card: SGD bit-equal to the replicated
+    step, AdamW losses within 1e-5 relative (chip_smoke's bound)."""
+    _need_card()
+    base, base_params, _ = _train_on_card(_sgd)
+    got, params, _ = _train_on_card(_sgd, zero=True)
+    assert got == base
+    assert all(torch.equal(a, b) for a, b in zip(params, base_params))
+
+    def adamw(ps):
+        return torch.optim.AdamW(ps, lr=1e-3, weight_decay=1e-4)
+
+    base, _, _ = _train_on_card(adamw)
+    for kw in ({}, dict(overlap=True, bucket_bytes=256 * 1024)):
+        got, _, _ = _train_on_card(adamw, zero=True, **kw)
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, base))
+
+
+WORLD4 = r"""
+import sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import training
+from horovod_tpu_torch.ops.adasum import adasum_allreduce
+
+rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+hvd.init(rank=rank, size=world, init_method="file://" + store)  # NCCL
+dev = hvd.device()
+res = {}
+rs = np.random.RandomState(50 + rank)
+v = torch.from_numpy(rs.randn(100003).astype(np.float32)).to(dev)
+whole = hvd.allreduce_gradients(v, op=hvd.Sum)
+for cut in (3, 1000, 50001):
+    parts = hvd.allreduce_gradients([v[:cut], v[cut:]], op=hvd.Sum)
+    res[f"layout{cut}"] = np.array(torch.equal(torch.cat(parts), whole))
+res["sum"] = whole.cpu().numpy()
+sp = [(rank + j) % 3 for j in range(world)]
+rows = torch.arange(sum(sp) * 2, dtype=torch.float32, device=dev).view(
+    -1, 2) + 1000 * rank
+recv, splits = hvd.alltoall(rows, splits=sp)
+res["a2a"], res["a2a_splits"] = recv.cpu().numpy(), splits.numpy()
+pm = torch.from_numpy((rs.choice([-1.0, 1.0], 16) * 2.0 ** -(rank % 3))
+                      .astype(np.float32)).to(dev)
+res["adasum_in"] = pm.cpu().numpy()
+res["adasum"] = adasum_allreduce(pm).cpu().numpy()
+
+g = np.random.RandomState(7)
+x = torch.from_numpy(g.randn(16, 32).astype(np.float32))[rank * 4:][:4].to(dev)
+y = torch.from_numpy(g.randn(16, 8).astype(np.float32))[rank * 4:][:4].to(dev)
+
+
+def mlp():
+    w = np.random.RandomState(8)
+    m = torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.Tanh(),
+                            torch.nn.Linear(64, 64), torch.nn.Tanh(),
+                            torch.nn.Linear(64, 8)).to(dev)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.from_numpy(w.randn(*p.shape).astype(np.float32)
+                                     * 0.3))
+    return m
+
+
+def loss_fn(o, t):
+    return (o - t).pow(2).mean()
+
+
+m = mlp()
+loss_fn(m(x), y).backward()
+for j, p in enumerate(m.parameters()):
+    res[f"local/g{j}"] = p.grad.cpu().numpy()
+for tag in ("plain", "overlap", "zero", "zero_overlap"):
+    m = mlp()
+    opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+    if tag.startswith("zero"):
+        state, step = training.zero_train_setup(
+            m, opt, loss_fn=loss_fn, overlap=tag == "zero_overlap",
+            bucket_bytes=4096)
+    else:
+        state = training.create_train_state(m, opt)
+        step = training.data_parallel_train_step(
+            m, opt, loss_fn=loss_fn, overlap=tag == "overlap",
+            bucket_bytes=4096 if tag == "overlap" else None)
+    for i in range(3):
+        state, loss = step(state, x, y)
+        if i == 0 and not tag.startswith("zero"):
+            for j, p in enumerate(m.parameters()):
+                res[f"{tag}/g{j}"] = p.grad.cpu().numpy()
+    for j, p in enumerate(m.parameters()):
+        res[f"{tag}/p{j}"] = p.detach().cpu().numpy()
+np.savez(out, **res)
+hvd.shutdown()
+"""
+
+
+def test_world4_nccl_rank_ordered_sums_and_training():
+    """Four cards over NCCL: the gradient reductions' floating sums give
+    the same bits however the buffer is cut; the overlapped, plain and ZeRO steps give the
+    same bits, and the reduced gradients equal the ranks' own gradients
+    added in rank order; uneven alltoall and Adasum."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    _need_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from horovod_tpu_torch.ops.adasum import adasum_combine_rows
+
+    world, root = 4, Path(__file__).resolve().parents[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.npz" for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", WORLD4, str(r), str(world),
+             str(Path(tmp) / "store"), str(outs[r])], cwd=str(root),
+            env=dict(os.environ, PYTHONPATH=str(root)))
+            for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        assert rcs == [0] * world
+        got = [dict(np.load(o)) for o in outs]
+    n = 6
+    for r in range(world):
+        res = got[r]
+        assert all(bool(res[f"layout{c}"]) for c in (3, 1000, 50001))
+        np.testing.assert_array_equal(res["sum"], got[0]["sum"])
+        for j in range(n):
+            want = got[0][f"local/g{j}"].copy()
+            for s in range(1, world):
+                want += got[s][f"local/g{j}"]
+            want = want / np.float32(world)
+            for tag in ("plain", "overlap"):
+                np.testing.assert_array_equal(res[f"{tag}/g{j}"], want)
+            for tag in ("overlap", "zero", "zero_overlap"):
+                np.testing.assert_array_equal(res[f"{tag}/p{j}"],
+                                              res[f"plain/p{j}"])
+        sends = {s: np.split(np.arange(sum((s + k) % 3 for k in range(
+            world)) * 2, dtype=np.float32).reshape(-1, 2) + 1000 * s,
+            np.cumsum([(s + k) % 3 for k in range(world)])[:-1])
+            for s in range(world)}
+        np.testing.assert_array_equal(res["a2a"], np.concatenate(
+            [sends[s][r] for s in range(world)]))
+        rows = torch.from_numpy(np.stack([got[s]["adasum_in"]
+                                          for s in range(world)]))
+        np.testing.assert_array_equal(res["adasum"],
+                                      adasum_combine_rows(rows).numpy())
