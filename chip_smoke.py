@@ -114,7 +114,29 @@ if any fails:
 11. resnet_oracle: ResNet-50 width, stage depths [1, 1, 1, 1], batch 4
    of 64x64, fp32 with TF32 off — every parameter gradient and running
    statistic on the card (the kernels) against the CPU (plain versions);
-12. dp4 (four cards; not in the default run, which needs one): gpt_small
+12. remat: the training phase's gpt_small run (10 steps, one seed, one
+   batch) under each remat policy — ``none``, ``dots``,
+   ``dots_no_batch``, ``full`` and the per-block mix
+   ``("none",)*6 + ("full",)*6``: every policy's losses bit-identical to
+   ``none``'s at every step, the sm90 forward launched 12 times a step
+   plus once per rematted block (24; 18 for the mix: the backward
+   recomputes it), dq and dkv 12, peak memory none > dots >=
+   dots_no_batch >= full (the mix between full and none); per policy
+   step time, tokens/s, peak memory beside ``modeled_activation_bytes``;
+13. pipeline: ResNet-50 in the resnet phase's configuration with
+   ``remat=True``, fed from the port's data pipeline (16 batches of
+   seeded uint8 images written as npy shards into a temporary
+   directory, ``make_loader("npy")``, prefetch depth 2) through
+   ``training.fit_epoch`` with a checkpoint every 4 steps (a ring of 3)
+   and a ``LearningRateWarmupCallback``: losses finite and falling, 105
+   launches of the stats and apply kernels a step and 53 of the
+   backward ones, the ring's 3 entries, each step's rate the warmup's;
+   images/s beside the resnet phase's, the loader's host wait a step,
+   the busy share, peak memory with and without remat; then, with
+   deterministic cuDNN, a fresh model restored from step 12 runs the
+   rest of the epoch with losses bit-identical to the uninterrupted
+   run's;
+14. dp4 (four cards; not in the default run, which needs one): gpt_small
    data-parallel training over NCCL, four ranks each on its own seeded
    B=8 x S=2048 batch, through the plain, overlapped and ZeRO steps of
    each package root given by ``--roots`` in turn (another checkout's
@@ -123,9 +145,9 @@ if any fails:
    ZERO_LOSS_REL_TOL; step times and tokens/s; and the gradients'
    rank-ordered allreduce against NCCL's own, in turns.
 
-Each main path (serving, training, overlap, zero, resnet) is driven
-with the kernels' launch counts set to 0 just before it and read just
-after.  The card's
+Each main path (serving, training, overlap, zero, remat, resnet,
+pipeline) is driven with the kernels' launch counts set to 0 just
+before it and read just after.  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -136,6 +158,9 @@ decode at serving's decode, the sm90 dq and dkv at gpt_small's bf16
 backward, the simt ones at gpt_small's fp32 backward (their path: the
 fp32 training oracle),
 the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
+the sm90 forward, dq and dkv launches summed over the training,
+overlap, zero and remat runs, the fused-norm launches over the resnet
+and pipeline runs;
 null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -1454,16 +1479,17 @@ def _train_counts():
         n for fn in fns for n in (fn.sm90_launches, fn.simt_launches))
 
 
-def _gpt_small():
+def _gpt_small(**kw):
     """gpt_small (12 layers, 12 heads of 64, vocab 32000) at full width
     and depth, bf16 compute over fp32 masters from SEED, and the fixed
-    B=8 x S=2048 batch: ``(cfg, model, inputs, labels)``."""
+    B=8 x S=2048 batch: ``(cfg, model, inputs, labels)``; ``kw`` goes
+    to the config (e.g. ``remat_policy``)."""
     import numpy as np
     import torch
 
     from horovod_tpu_torch.models import Transformer, gpt_small, init_params
 
-    cfg = gpt_small(dtype=torch.bfloat16, attention_impl="flash")
+    cfg = gpt_small(dtype=torch.bfloat16, attention_impl="flash", **kw)
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
                          device="cuda", param_dtype=torch.float32)
     model = Transformer(cfg, params=params)
@@ -1741,6 +1767,416 @@ def phase_zero(train):
     hvd.shutdown()
     del runs
     torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase: remat --------------------------------------------------------------
+
+#: the remat phase's policies: each named one for every block, then the
+#: per-block mix that remats only the deep half
+REMAT_RUNS = ("none", "dots", "dots_no_batch", "full",
+              ("none",) * 6 + ("full",) * 6)
+
+
+def phase_remat():
+    """gpt_small at full width and depth (the training phase's model,
+    batch and AdamW) under each of REMAT_RUNS, TRAIN_STEPS steps each
+    from the same seed through init() (world 1 over NCCL) ->
+    replicate_state -> data_parallel_train_step.  Per policy: step time,
+    tokens/s, peak memory after a reset (and above what was allocated
+    before the policy's model was built) beside the modeled activation
+    bytes (``modeled_activation_bytes``), and the flash kernels'
+    launches a step.  Asserts: every policy's losses bit-identical to
+    ``none``'s at every step; the sm90 forward launched once a layer
+    plus once a rematted layer a step (24 under a policy for every
+    block, 18 for the mix), dq and dkv 12, every launch the sm90
+    variant; peak memory none > dots >= dots_no_batch >= full, and the
+    mix between full and none.  Each policy's device time and busy share
+    over PROFILE_STEPS more steps follow its record."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import modeled_activation_bytes
+
+    hvd.init()
+    assert hvd.size() == 1 and hvd.device().type == "cuda"
+    runs, launches = [], None
+    for policy in REMAT_RUNS:
+        base = torch.cuda.memory_allocated()  # what earlier phases hold
+        cfg, model, inputs, labels = _gpt_small(remat_policy=policy)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = _adamw(model.parameters())
+        state = training.replicate_state(
+            training.create_train_state(model, opt))
+        step = training.data_parallel_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, per_step, times = _drive(step, state, inputs, labels,
+                                                TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _train_counts()
+        launches = counts if launches is None else tuple(
+            a + b for a, b in zip(launches, counts))
+        modeled = modeled_activation_bytes(cfg, TRAIN_B, TRAIN_S)
+        name = policy if isinstance(policy, str) else "none6_full6"
+        n = cfg.num_layers
+        remats = sum(p != "none" for p in cfg.block_remat_policies())
+        rec = dict(policy=name, losses=losses,
+                   **{k: v for k, v in _speed(times, n_params, cfg).items()
+                      if k != "step_s"},
+                   peak_mem_bytes=peak, base_mem_bytes=base,
+                   peak_above_base_bytes=peak - base,
+                   modeled_activation_bytes=modeled["total_bytes"],
+                   launches_per_step=dict(zip(TRAIN_COUNTS, per_step[0])))
+        log("  remat: " + json.dumps(rec))
+        rec["profile"] = profile_train(step, state, inputs, labels,
+                                       name=f"remat {name}")
+        want = (n + remats, n, n, n + remats, 0, n, 0, n, 0)
+        assert all(c == want for c in per_step), (
+            f"{name}: kernel launches per step {per_step} != {want} "
+            f"({', '.join(TRAIN_COUNTS)})")
+        assert all(math.isfinite(x) for x in losses), losses
+        if runs:
+            assert losses == runs[0]["losses"], (
+                f"{name}: losses {losses} differ from none's "
+                f"{runs[0]['losses']}")
+        runs.append(rec)
+        del state, step, model, opt
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    peak = {r["policy"]: r["peak_mem_bytes"] for r in runs}
+    assert (peak["none"] > peak["dots"] >= peak["dots_no_batch"]
+            >= peak["full"]), f"peak memory out of order: {peak}"
+    assert peak["full"] <= peak["none6_full6"] <= peak["none"], peak
+    return dict(runs=runs, launches=dict(zip(TRAIN_COUNTS, launches)))
+
+
+# -- phase: pipeline -----------------------------------------------------------
+
+PIPE_BATCHES, PIPE_DEPTH, PIPE_CKPT_EVERY, PIPE_KEEP = 16, 2, 4, 3
+PIPE_LR, PIPE_LR0 = 0.1, 0.01  # warmup from PIPE_LR0 to PIPE_LR in an epoch
+PIPE_RESUME_FROM = 12
+PIPE_CLASSES = 10
+
+
+def _resnet50(remat, seed=SEED):
+    import torch
+
+    from horovod_tpu_torch.models import ResNet50
+
+    return ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                    stem="space_to_depth", device="cuda", remat=remat,
+                    generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def _resnet_state(remat, seed=SEED):
+    import torch
+
+    from horovod_tpu_torch import training
+
+    model = _resnet50(remat, seed)
+    opt = torch.optim.SGD(model.parameters(), lr=PIPE_LR, momentum=0.9)
+    state = training.replicate_state(training.create_train_state(model, opt))
+    return state, training.data_parallel_train_step(model, opt)
+
+
+def _resnet_fixed(remat, images, labels, steps=6):
+    """``(peak memory bytes above what was allocated before the model
+    was built, steady step seconds)`` of ``steps`` steps on one
+    device-resident batch (the first two pay cuDNN's search)."""
+    import torch
+
+    base = torch.cuda.memory_allocated()
+    state, step = _resnet_state(remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    del state, step
+    torch.cuda.empty_cache()
+    return peak, sum(times[2:]) / len(times[2:])
+
+
+def _warmup_loop(state):
+    """A TrainLoop over ``state`` with the epoch's LR warmup."""
+    from horovod_tpu_torch import callbacks
+
+    return callbacks.TrainLoop(state, [callbacks.LearningRateWarmupCallback(
+        target_lr=PIPE_LR, warmup_epochs=1, steps_per_epoch=PIPE_BATCHES,
+        initial_lr=PIPE_LR0)])
+
+
+def _looped(step, loop, first_batch, rec):
+    """``step`` with the loop's per-batch callbacks around it, recording
+    per step: the rate it ran at, the fused-norm launches, the step's
+    own seconds (to a synchronize) and when it began."""
+    import torch
+
+    batch = [first_batch]
+
+    def run(state, inputs, labels):
+        loop.state = state
+        loop.on_batch_begin(batch[0])
+        rec["lr"].append(loop.lr)
+        before = _bn_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, inputs, labels)
+        torch.cuda.synchronize()
+        rec["begin"].append(t0)
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["per_step"].append(tuple(a - b for a, b in
+                                     zip(_bn_counts(), before)))
+        rec["losses"].append(loss)
+        loop.on_batch_end(batch[0])
+        batch[0] += 1
+        return state, loss
+
+    return run
+
+
+def _new_rec():
+    return dict(lr=[], begin=[], step_s=[], per_step=[], losses=[])
+
+
+def phase_pipeline(resnet):
+    """ResNet-50 in bench.py's configuration (batch 128 at 224², bf16
+    over fp32 masters, space-to-depth stem, SGD 0.1/0.9) with
+    ``remat=True``, fed by the port's data pipeline:
+    ``write_npy_shards`` writes PIPE_BATCHES batches of seeded uint8
+    images into a temporary directory, ``make_loader("npy")`` reads them
+    (uint8 normalized to fp32 on the worker pool, cast to bf16 on the
+    host, staged PIPE_DEPTH ahead on a side stream), and
+    ``training.fit_epoch`` runs the epoch with a crash-atomic checkpoint
+    every PIPE_CKPT_EVERY steps (a ring of PIPE_KEEP) and a
+    ``LearningRateWarmupCallback`` on a ``TrainLoop`` around the step.
+
+    The images are seeded noise plus a color per label, over
+    PIPE_CLASSES of the 1000 classes.  Asserts: every loss finite and
+    the last four below the first four (each step sees a fresh batch);
+    105 launches
+    of the stats and apply kernels a step (53 sites, 52 of them again in
+    the backward's recompute of the 16 blocks) and 53 of the backward
+    ones; the ring holds PIPE_KEEP entries; each step's rate is the
+    warmup's.  Prints images/s (steady steps from one batch's start to
+    the next's, the loader's wait and the checkpoint writes included;
+    beside the resnet phase's device-resident figure), the loader's host
+    wait a step, the busy share over profiled pipeline-fed steps, and
+    the peak memory (above what was allocated before the model was
+    built) and step time of remat=True against remat=False at batch 128
+    on one device-resident batch.
+
+    Then the resume check, with ``cudnn.deterministic`` on for it alone:
+    an uninterrupted epoch with checkpoints, a rollback of the ring to
+    step PIPE_RESUME_FROM (``discard_newer_than``), and a fresh model
+    and optimizer (another seed) that ``restore_checkpoint`` the newest
+    entry and run the rest of the epoch: their losses bit-identical to
+    the uninterrupted run's."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks, checkpoint, data, training
+
+    benchmark = torch.backends.cudnn.benchmark
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = True
+    hvd.init()
+    assert hvd.size() == 1 and hvd.device().type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="hvd_pipeline_")
+    try:
+        rs = np.random.RandomState(SEED)
+        n = PIPE_BATCHES * RESNET_B
+        t0 = time.perf_counter()
+        # seeded noise plus a color per label (PIPE_CLASSES of the 1000
+        # classes), so one epoch of fresh batches has something to learn
+        labels = rs.randint(0, PIPE_CLASSES, (n,)).astype(np.int32)
+        colors = rs.randint(0, 128, (PIPE_CLASSES, 3)).astype(np.uint8)
+        images = rs.randint(0, 128, (n, RESNET_HW, RESNET_HW, 3),
+                            dtype=np.uint8)
+        images += colors[labels][:, None, None, :]
+        data.write_npy_shards(os.path.join(tmp, "data"), images, labels,
+                              num_shards=4)
+        write_s = time.perf_counter() - t0
+        dataset_bytes = images.nbytes + labels.nbytes
+        del images, labels
+
+        def loader():
+            return data.make_loader(
+                "npy", os.path.join(tmp, "data"), batch_size=RESNET_B,
+                image_size=RESNET_HW, seed=SEED, prefetch_depth=PIPE_DEPTH,
+                cast="bfloat16")
+
+        # peak memory and step time, remat on and off, on one
+        # device-resident batch
+        ld = loader()
+        x0, y0 = next(iter(ld))
+        ld._last.close()
+        fixed = {r: _resnet_fixed(r, x0, y0) for r in (False, True)}
+        del x0, y0
+
+        # the main path: fit_epoch over the loader
+        base = torch.cuda.memory_allocated()
+        state, step = _resnet_state(True)
+        loop = _warmup_loop(state)
+        loop.on_epoch_begin(0)
+        rec = _new_rec()
+        ld = loader()
+        ckdir = os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in _bn_wrappers():
+            w.launches = 0
+        t0 = time.perf_counter()
+        state, last = training.fit_epoch(
+            _looped(step, loop, 0, rec), state, ld, epoch=0,
+            checkpoint_dir=ckdir, checkpoint_every=PIPE_CKPT_EVERY,
+            checkpoint_keep=PIPE_KEEP)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = _bn_counts()
+        pipe_peak = torch.cuda.max_memory_allocated() - base
+        loop.on_epoch_end(0)
+        stats = ld.stats()
+        losses = [float(x) for x in rec["losses"]]
+        ring = sorted(os.listdir(ckdir))
+        assert state.step == PIPE_BATCHES == len(losses), (state.step,
+                                                           len(losses))
+        assert all(math.isfinite(x) for x in losses), losses
+        # fresh batches every step: compare the first and last four
+        assert sum(losses[-4:]) < sum(losses[:4]), (
+            f"loss did not fall: {losses}")
+        want = (2 * RESNET_SITES - 1,) * 2 + (RESNET_SITES,) * 2
+        assert all(c == want for c in rec["per_step"]), (
+            f"fused-norm launches per step {rec['per_step']} != {want} "
+            f"(stats, apply, bwd_reduce, dx)")
+        keep = [f"ckpt-{s}" for s in range(PIPE_BATCHES, 0,
+                                           -PIPE_CKPT_EVERY)][:PIPE_KEEP]
+        assert ring == sorted(keep), f"checkpoint ring {ring} != {keep}"
+        sched = callbacks.warmup_schedule(PIPE_LR, PIPE_BATCHES, PIPE_LR0)
+        # the callback's arithmetic: init + (target - init) * progress
+        want_lr = [PIPE_LR0 + (PIPE_LR - PIPE_LR0) * (b / PIPE_BATCHES)
+                   for b in range(PIPE_BATCHES)]
+        assert rec["lr"] == want_lr, (rec["lr"], want_lr)
+        assert all(abs(a - sched(b)) <= 1e-6 * PIPE_LR
+                   for b, a in enumerate(rec["lr"])), rec["lr"]
+        assert loop.lr == PIPE_LR
+        # a cycle = one batch's start to the next's: the step, the
+        # loader's wait and (on checkpoint steps) the write
+        cycles = np.diff(rec["begin"])
+        ckpt_steps = {s - 1 for s in range(PIPE_CKPT_EVERY, PIPE_BATCHES,
+                                           PIPE_CKPT_EVERY)}
+        steady = [c for i, c in enumerate(cycles)
+                  if i >= 2 and i not in ckpt_steps]
+        cyc_s = sum(steady) / len(steady)
+        step_s = sum(rec["step_s"][2:]) / len(rec["step_s"][2:])
+        # one step's end to the next's start: the loader's wait and the
+        # loop's own work (steady cycles without a checkpoint write)
+        gaps = [c - rec["step_s"][i] for i, c in enumerate(cycles)
+                if i >= 2 and i not in ckpt_steps]
+        out = dict(
+            batches=PIPE_BATCHES, batch=RESNET_B, image=RESNET_HW,
+            dataset_bytes=dataset_bytes, write_shards_s=write_s,
+            losses=losses, lr=rec["lr"], epoch_s=epoch_s,
+            cycle_s=list(cycles), cycle_s_mean_steady=cyc_s,
+            images_per_s=RESNET_B / cyc_s,
+            step_s_mean_steady=step_s,
+            images_per_s_step_only=RESNET_B / step_s,
+            host_wait_ms_per_step=stats["input_wait_ms_mean"],
+            gap_ms_mean_steady=sum(gaps) / len(gaps) * 1e3,
+            loader=stats, checkpoint_ring=ring,
+            launches=dict(zip(("bn_stats", "bn_apply", "bn_bwd_reduce",
+                               "bn_dx"), launches)),
+            launches_per_step=list(rec["per_step"][0]),
+            peak_mem_bytes_pipeline=pipe_peak,
+            peak_mem_bytes_remat=fixed[True][0],
+            peak_mem_bytes_no_remat=fixed[False][0],
+            resident_step_s_remat=fixed[True][1],
+            resident_step_s_no_remat=fixed[False][1],
+            resident_images_per_s_remat=RESNET_B / fixed[True][1])
+        if resnet:
+            out["resnet_phase_images_per_s"] = resnet["images_per_s"]
+        log("  pipeline: " + json.dumps(out))
+        out["profile"] = profile_pipeline(step, state, loader())
+        del state, step, loop
+
+        # the resume check, deterministic cuDNN for it alone
+        torch.backends.cudnn.deterministic = True
+        state, step = _resnet_state(True)
+        loop = _warmup_loop(state)
+        loop.on_epoch_begin(0)
+        full = _new_rec()
+        ckdir = os.path.join(tmp, "resume")
+        state, _ = training.fit_epoch(
+            _looped(step, loop, 0, full), state, loader(), epoch=0,
+            checkpoint_dir=ckdir, checkpoint_every=PIPE_CKPT_EVERY,
+            checkpoint_keep=PIPE_KEEP)
+        del state, step, loop
+        checkpoint.discard_newer_than(ckdir, PIPE_RESUME_FROM)
+        state, step = _resnet_state(True, seed=SEED + 1)
+        state = checkpoint.restore_checkpoint(ckdir, state)
+        assert state.step == PIPE_RESUME_FROM, state.step
+        loop = _warmup_loop(state)
+        loop.on_epoch_begin(0)
+        rest = _new_rec()
+        ld = loader()
+        ld.set_epoch(0)
+        state, _ = training.fit_epoch(
+            _looped(step, loop, PIPE_RESUME_FROM, rest), state,
+            itertools.islice(ld, PIPE_RESUME_FROM, None))
+        ld._last.close()
+        assert state.step == PIPE_BATCHES, state.step
+        a = [float(x) for x in full["losses"][PIPE_RESUME_FROM:]]
+        b = [float(x) for x in rest["losses"]]
+        out["resume"] = dict(uninterrupted=a, resumed=b,
+                             max_abs_err=max(abs(x - y)
+                                             for x, y in zip(a, b)))
+        log("  pipeline resume: " + json.dumps(out["resume"]))
+        assert a == b, f"resumed losses {b} != uninterrupted {a}"
+        assert rest["lr"] == full["lr"][PIPE_RESUME_FROM:], rest["lr"]
+        del state, step, loop
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_pipeline(step, state, loader):
+    """Device busy share over PROFILE_STEPS + 1 loader-fed steps under
+    torch.profiler (the loader's own threads running beside them)."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    loader.set_epoch(1)
+    batches = iter(loader)
+    x, y = next(batches)  # the first batch pays the pool's start-up
+    state, _ = step(state, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in itertools.islice(batches, PROFILE_STEPS + 1):
+            state, _ = step(state, x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    batches.close()
+    rec = _device_breakdown(prof, wall, PROFILE_STEPS + 1,
+                            classify=_resnet_kernel_class)
+    log("  pipeline profile: " + json.dumps(rec))
     return rec
 
 
@@ -2294,7 +2730,7 @@ def phase_dp4(roots, device="cuda", preset="gpt_small", b=TRAIN_B,
 
 
 PHASES = ("kernels", "serving", "oracle", "training", "overlap", "zero",
-          "training_oracle", "resnet", "resnet_oracle")
+          "training_oracle", "remat", "resnet", "resnet_oracle", "pipeline")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -2304,8 +2740,9 @@ BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
 
 
 def bn_entries(bn_kern, resnet):
-    """The fused-norm kernels' entries: ``launches`` from the resnet
-    run; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed
+    """The fused-norm kernels' entries: ``launches`` summed over the
+    main paths' runs in ``resnet`` (the resnet and pipeline phases);
+    ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed
     over ResNet-50's 53 sites at batch 128 (each site shape's bf16 case
     times its count: one training step's worth), ``library_ms``
     ``torch.var_mean`` beside stats (its function in one call), the
@@ -2314,10 +2751,12 @@ def bn_entries(bn_kern, resnet):
     case."""
     entries = []
     for name, key, line, outs in BN_ENTRIES:
+        runs = [r for r in resnet if r]
         e = dict(name=name, route="cuda",
                  source="horovod_tpu_torch/csrc/fused_norm.cu",
                  replaces=f"horovod_tpu/ops/fused_norm.py:{line}",
-                 launches=resnet["launches"][name] if resnet else None,
+                 launches=sum(r["launches"][name] for r in runs)
+                 if runs else None,
                  max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
                  bound_by=None, library_ms=None)
         if bn_kern:
@@ -2468,7 +2907,7 @@ def main(argv=None) -> int:
                                        "warning")):
                 log(f"  {name}: {line.strip()}")
     kern = train_kern = bn_kern = serving = train = resnet = None
-    train_oracle = None
+    train_oracle = remat = pipeline = None
     if "kernels" in phases:
         log("phase kernels:")
         kern = phase_kernels()
@@ -2495,22 +2934,28 @@ def main(argv=None) -> int:
     if "training_oracle" in phases:
         log("phase training_oracle:")
         train_oracle = phase_training_oracle()
+    if "remat" in phases:
+        log("phase remat:")
+        remat = phase_remat()
     if "resnet" in phases:
         log("phase resnet:")
         resnet = phase_resnet()
     if "resnet_oracle" in phases:
         log("phase resnet_oracle:")
         phase_resnet_oracle()
+    if "pipeline" in phases:
+        log("phase pipeline:")
+        pipeline = phase_pipeline(resnet)
     if "dp4" in phases:
         log("phase dp4:")
         phase_dp4(args.roots.split(","))
-    if train is not None:  # the training kernels ran on three main paths
-        train = dict(train, launches={k: sum(
-            r["launches"][k] for r in (train, overlap, zero) if r)
-            for k in train["launches"]})
+    runs = [r for r in (train, overlap, zero, remat) if r]
+    if runs:  # the training kernels ran on up to four main paths
+        train = dict(train or {}, launches={k: sum(
+            r["launches"][k] for r in runs) for k in TRAIN_COUNTS})
     entries = (kernel_entries(kern, train_kern, serving, train,
                               train_oracle, oracle)
-               + bn_entries(bn_kern, resnet))
+               + bn_entries(bn_kern, (resnet, pipeline)))
     log(card)
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,12 @@ BN(+residual)+ReLU kernels of ``ops.fused_norm``; ``SyncBatchNorm``),
 and the rest of Horovod's training API: process sets, every collective
 with Adasum, the hook-driven ``DistributedOptimizer`` that reduces each
 gradient bucket inside the backward, gradient compression, and ZeRO
-stage 1 (``ZeroDistributedOptimizer``, ``training.zero_train_setup``).
+stage 1 (``ZeroDistributedOptimizer``, ``training.zero_train_setup``),
+and the loop around the step: the input pipeline (``data``), activation
+remat (``TransformerConfig.remat_policy``, ``ResNet(remat=True)``),
+crash-atomic checkpoints (``checkpoint``), the Keras-style callbacks
+(``callbacks``), fault injection (``chaos``) and
+``training.fit_epoch``.
 Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.
@@ -101,7 +106,7 @@ from .optim import (
     with_gradient_accumulation,
 )
 from .sync_batch_norm import SyncBatchNorm
-from . import trace
+from . import callbacks, chaos, checkpoint, data, trace
 
 __version__ = "0.2.0"
 

@@ -101,6 +101,11 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.device, _state.backend = dev, backend
         _state.process_set_registry.attach_world(size)
+        # fault injection: this rank's HVD_TPU_CHAOS plan (no spec = one
+        # module bool per injection point)
+        from .. import chaos as _chaos
+
+        _chaos.install_from_env(rank=rank)
         _state.initialized = True
         get_logger().info("initialized: rank %d of %d on %s (%s)",
                           rank, size, dev, backend)

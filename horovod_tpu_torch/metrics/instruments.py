@@ -1,10 +1,11 @@
 """The port's metric instruments, in one place.
 
 Copied from ``horovod_tpu/metrics/instruments.py``: the instruments the
-serving slice, the overlapped optimizer and ZeRO book, under the same
-names, label sets and buckets (the catalogue in docs/METRICS.md
-describes them).  The collective, data, fleet, guard and elastic
-instruments arrive with the slices that book them.
+serving slice, the overlapped optimizer, ZeRO, the input pipeline, the
+training loop and the chaos engine book, under the same names, label
+sets and buckets (the catalogue in docs/METRICS.md describes them).  The
+collective, fleet, guard and elastic instruments arrive with the slices
+that book them.
 """
 
 from __future__ import annotations
@@ -17,6 +18,41 @@ EXEC_CACHE = counter(
     "hvd_tpu_executable_cache_total",
     "Engine executable-cache lookups by outcome (hit/miss)",
     ["event"],
+)
+
+# -- input pipeline (data/ — docs/DATA.md) ------------------------------------
+
+#: Device-ready batches currently staged in the prefetch queue.
+DATA_PREFETCH_DEPTH = gauge(
+    "hvd_tpu_data_prefetch_depth",
+    "Device-ready batches currently staged in the prefetch queue",
+)
+
+#: Time the training thread blocked in next() waiting for a device batch —
+#: THE input-starvation signal (0 when the pipeline is fully overlapped).
+DATA_HOST_WAIT = histogram(
+    "hvd_tpu_data_host_wait_seconds",
+    "Training-thread wait for the next prefetched batch (input starvation)",
+)
+
+#: Host-side cost of producing one batch: source read + decode + collate
+#: (worker-pool time, overlapped with device compute when healthy).
+DATA_BATCH_PRODUCE = histogram(
+    "hvd_tpu_data_batch_produce_seconds",
+    "Host-side decode/collate time per batch (worker pool)",
+)
+
+#: Host->device staging cost of one batch (cast, pin, start the copy).
+DATA_DEVICE_PUT = histogram(
+    "hvd_tpu_data_device_put_seconds",
+    "Host-to-device transfer staging time per prefetched batch",
+)
+
+#: Batches delivered to the training thread, by source kind.
+DATA_BATCHES = counter(
+    "hvd_tpu_data_batches_total",
+    "Batches delivered by the input pipeline, by source kind",
+    ["source"],
 )
 
 # -- inference serving (serving/ — docs/SERVING.md) --------------------------
@@ -143,4 +179,22 @@ OPTIM_AG_BYTES = counter(
 OPTIM_STATE_SHARD_BYTES = gauge(
     "hvd_tpu_optim_state_shard_bytes",
     "Sharded optimizer-state bytes held by this rank (ZeRO partition)",
+)
+
+# -- fault injection and the training loop ------------------------------------
+
+#: Chaos faults injected, by site and action.
+CHAOS_INJECTIONS = counter(
+    "hvd_tpu_chaos_injections_total",
+    "Chaos faults injected, by site and action",
+    ["site", "action"],
+)
+
+#: Training step wall time, by adapter (the callbacks' TrainLoop books
+#: it under "torch").
+STEP_DURATION = histogram(
+    "hvd_tpu_step_duration_seconds",
+    "Training step wall time, by adapter",
+    ["adapter"],
+    buckets=DEFAULT_LATENCY_BUCKETS + (25.0, 60.0),
 )

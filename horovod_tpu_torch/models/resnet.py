@@ -31,11 +31,22 @@ the flax model on the same weights:
 ``bn_group`` is the port's ``bn_axis_name``: a ``torch.distributed``
 group (or :data:`WORLD`) over which every BatchNorm shares its batch
 statistics (sync BN, through the op's ``process_group`` seam).
-``remat=True`` is not ported yet (it raises).
+
+``remat=True`` checkpoints every residual block, not the stem, saving
+nothing but the block's input (flax's ``nn.remat(block_cls)``), in
+training with grad enabled.  The backward recomputes each block's
+forward: its norms run the fused kernels again (the stats kernel sums in
+a fixed order, so the recomputed statistics have the forward's bits;
+under sync BN the statistics all-reduce runs again, in the same order on
+every rank, as JAX's remat repeats its ``psum``), but a recomputing
+BatchNorm leaves its running statistics alone — the checkpoint's
+recompute-only context switches the update off — so they move once a
+step, as without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import List, Optional, Sequence, Tuple
@@ -47,6 +58,7 @@ from torch import nn
 
 from ..common.device import resolve_device
 from ..ops.fused_norm import fused_batch_norm_act
+from ._remat import recompute_only, remat_call
 
 #: ``bn_group`` / ``process_group`` value naming the default (world)
 #: group, resolved when the norm runs (the group need not exist yet when
@@ -131,6 +143,9 @@ class BatchNorm(nn.Module):
             (features,), dtype=torch.float32, device=dev))
         self.register_buffer("var", torch.ones(
             (features,), dtype=torch.float32, device=dev))
+        #: set while a remat backward recomputes this norm's block: the
+        #: running statistics already moved in the forward
+        self.recomputing = False
 
     def group(self):
         """The process group the statistics are shared over, or None."""
@@ -144,6 +159,8 @@ class BatchNorm(nn.Module):
                 x.permute(0, 2, 3, 1), self.scale, self.bias,
                 None if residual is None else residual.permute(0, 2, 3, 1),
                 eps=self.eps, relu=relu, process_group=self.group())
+            if self.recomputing:
+                return y.permute(0, 3, 1, 2)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_(mean, alpha=1 - m)
@@ -248,6 +265,19 @@ class ResNetBlock(nn.Module):
         return self.BatchNorm_1(self.Conv_1(y), residual=residual, relu=True)
 
 
+@contextlib.contextmanager
+def _recomputing(block: nn.Module):
+    """Mark ``block``'s norms as recomputing for the duration."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
 def space_to_depth(x):
     """(N, H, W, C) -> (N, H/2, W/2, 4C): the MLPerf stem's 2x2
     space-to-depth, channel order (row parity, column parity, C) as in
@@ -272,17 +302,12 @@ class ResNet(nn.Module):
                  stem: str = "conv", remat: bool = False, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "per-block remat is not ported yet (the recomputed forward "
-                "would update the running statistics twice); queued in "
-                "ROADMAP")
         if stem not in ("conv", "space_to_depth"):
             raise ValueError(f"unknown stem {stem!r}")
         dev = resolve_device(device)
         gen = generator if generator is not None else \
             torch.Generator(dev).manual_seed(0)
-        self.dtype, self.stem = dtype, stem
+        self.dtype, self.stem, self.remat = dtype, stem, remat
         conv = functools.partial(Conv, dtype=dtype, device=dev, generator=gen)
         norm = functools.partial(BatchNorm, dtype=dtype, device=dev,
                                  process_group=bn_group)
@@ -313,8 +338,14 @@ class ResNet(nn.Module):
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
         x = self.bn_init(self.conv_init(x), relu=True)
         x = F.max_pool2d(x, 3, 2, 1)  # flax max_pool pads with -inf too
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if remat:
+                x = remat_call(block, "full", x, context_fn=recompute_only(
+                    functools.partial(_recomputing, block)))
+            else:
+                x = block(x)
         # jnp.mean of a bf16 activation sums in fp32 and rounds the mean
         x = (x.sum(dim=(2, 3), dtype=torch.float32)
              / (x.shape[2] * x.shape[3])).to(self.dtype)

@@ -21,7 +21,17 @@ Weights keep the flax layout and names (``embed.embedding``,
 training masters, as flax keeps them — or already ``cfg.dtype`` — the
 serving copy: each is cast to ``cfg.dtype`` where it is used, as flax
 casts before every product, and for a weight already in ``cfg.dtype``
-that cast is a no-op.  Activation remat is not ported yet.
+that cast is a no-op.
+
+Activation remat follows the JAX config: ``remat_policy`` (one of
+:data:`REMAT_POLICIES` for every block, or one name per block) with the
+legacy ``remat=True`` meaning ``dots_no_batch``.  Where the JAX model
+remats — in training (``model.train()``, grad enabled) and never on the
+paged serving path — each block whose policy is not ``none`` runs
+through ``torch.utils.checkpoint`` (:mod:`._remat` says how each policy
+maps).  Under every policy but ``none`` the flash forward runs again in
+the backward: two sm90 forward launches a layer a step, one dq and one
+dkv.
 """
 
 from __future__ import annotations
@@ -39,8 +49,54 @@ from ..common.device import resolve_device
 from ..ops.flash_attention import (
     flash_attention, flash_chunk_attention, flash_decode_paged,
 )
+from ._remat import remat_call
 
 _NORM_EPS = 1e-5
+
+# Named activation-remat policies for the decoder blocks (the JAX
+# package's names; each value names the jax.checkpoint_policies member
+# the policy mirrors, None = save nothing or no remat).  What the
+# backward may read from the forward without recomputing:
+#   none          — every intermediate saved (no remat)
+#   dots          — every product's output saved, the rest recomputed
+#   dots_no_batch — the outputs of products without a batch dimension
+#                   saved (a decoder block's projections; the dense
+#                   attention's batched products are recomputed)
+#   full          — nothing but the block input
+REMAT_POLICIES = {
+    "none": None,
+    "dots": "checkpoint_dots",
+    "dots_no_batch": "checkpoint_dots_with_no_batch_dims",
+    "full": None,
+}
+
+
+def resolve_remat_policies(policy, num_layers: int,
+                           default: str = "none"):
+    """Normalize a remat-policy selection to one name per block.
+
+    ``policy`` may be None (→ ``default`` everywhere), a single policy
+    name applied to every block, or a sequence of ``num_layers`` names
+    selecting per block (e.g. remat only the deep half of the stack).
+    """
+    if policy is None:
+        policy = default
+    if isinstance(policy, str):
+        policies = (policy,) * num_layers
+    else:
+        policies = tuple(policy)
+        if len(policies) != num_layers:
+            raise ValueError(
+                f"per-block remat policy needs {num_layers} entries, "
+                f"got {len(policies)}"
+            )
+    for p in policies:
+        if p not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat policy {p!r}; expected one of "
+                f"{sorted(REMAT_POLICIES)}"
+            )
+    return policies
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +120,12 @@ class TransformerConfig:
     #: sliding window: each token attends the last `window` positions,
     #: itself included
     window: Optional[int] = None
-    #: activation remat (the JAX config's switches); only the default,
-    #: no remat, is ported
+    #: remat every block in training; legacy switch: True ≡
+    #: remat_policy="dots_no_batch"
     remat: bool = False
+    #: None (derive from ``remat``), a REMAT_POLICIES name for every
+    #: block, or a tuple of num_layers names, one per block — e.g.
+    #: ("none",)*6 + ("full",)*6 remats only the deep half
     remat_policy: Any = None
 
     def __post_init__(self):
@@ -77,13 +136,21 @@ class TransformerConfig:
                 f"num_kv_heads ({kv})")
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window}")
-        policy = self.remat_policy
-        policies = ((policy,) if isinstance(policy, str)
-                    else tuple(policy or ()))
-        if self.remat or any(p != "none" for p in policies):
-            raise NotImplementedError(
-                "activation remat (remat=True / remat_policy) is not "
-                "ported yet; queued in ROADMAP")
+        if self.remat_policy is not None:
+            # normalize early so invalid names fail at config build, and
+            # store a hashable tuple (the dataclass is frozen/hashable)
+            object.__setattr__(
+                self, "remat_policy",
+                self.remat_policy if isinstance(self.remat_policy, str)
+                else tuple(self.remat_policy))
+            resolve_remat_policies(self.remat_policy, self.num_layers)
+
+    def block_remat_policies(self):
+        """Per-block policy names (``remat_policy`` resolved, with the
+        legacy ``remat`` bool as the default)."""
+        return resolve_remat_policies(
+            self.remat_policy, self.num_layers,
+            default="dots_no_batch" if self.remat else "none")
 
     @property
     def d_model(self) -> int:
@@ -296,6 +363,8 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """Decoder-only LM: ``forward(tokens, positions=None, paged=None) ->
     logits`` (in ``cfg.dtype``, as flax's ``Embed.attend`` returns them).
+    In training mode with grad enabled and no ``paged`` state, each
+    block remats under ``cfg.block_remat_policies()``.
 
     ``params`` (a state dict as from :func:`init_params` or
     :func:`~horovod_tpu_torch.models.convert.params_from_flax`, matrices
@@ -333,8 +402,15 @@ class Transformer(nn.Module):
                 tokens.shape[1], device=tokens.device).expand(tokens.shape)
         # nn.Embed: the gathered rows in cfg.dtype
         x = self.embed.embedding[tokens].to(cfg.dtype)
+        # remat where the JAX model applies it: training, never serving
+        remat = self.training and torch.is_grad_enabled() and paged is None
+        policies = cfg.block_remat_policies() if remat else None
         for i in range(cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, paged, i)
+            block = getattr(self, f"layer_{i}")
+            if policies is None:
+                x = block(x, positions, paged, i)
+            else:
+                x = remat_call(block, policies[i], x, positions)
         x = self.ln_f(x)
         # flax Embed.attend: the fp32 query and the table, cast to
         # cfg.dtype
@@ -370,6 +446,52 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                                       generator=generator)
             out[key] = t.to(dtype)
     return out
+
+
+def modeled_activation_bytes(cfg: TransformerConfig, batch: int,
+                             seq: Optional[int] = None) -> dict:
+    """Modeled forward-to-backward activation bytes under the config's
+    remat policies: the JAX package's model, copied unchanged (its
+    tests pin the arithmetic), with ``act`` the itemsize of
+    ``cfg.dtype``.
+
+    Counts, per block, the tensors the backward reads without
+    recomputation (attention-impl-agnostic: flash never materializes
+    the S×S probabilities):
+
+      none          — block input, ln1/ln2 outputs, q, k, v, attention
+                      context, gate, up, silu(gate)*up
+      dots          — block input + matmul outputs only (q, k, v,
+                      context, o-proj, gate, up, down-proj)
+      dots_no_batch — block input only (the model's own account; JAX's
+                      policy in fact keeps the projection outputs, as
+                      the port's does: ROADMAP.md §C2)
+      full          — block input only
+
+    Returns ``{"total_bytes", "per_block_bytes": {policy: bytes},
+    "policies"}``; ``total_bytes`` sums the per-block figure over the
+    resolved per-block policies.
+    """
+    s = int(seq if seq is not None else cfg.max_seq_len)
+    act = cfg.dtype.itemsize
+    kv_heads = cfg.num_kv_heads or cfg.num_heads
+    bsd = batch * s * cfg.d_model * act          # one (B, S, D) tensor
+    kv = 2 * batch * s * kv_heads * cfg.head_dim * act   # K and V
+    f = batch * s * cfg.d_model * cfg.mlp_ratio * act    # one MLP hidden
+    per_block = {
+        "none": 5 * bsd + kv + 3 * f,   # input, ln1, q, ctx, ln2 + k,v
+                                        # + gate, up, silu(gate)*up
+        "dots": 5 * bsd + kv + 2 * f,   # input, q, ctx, o, down + k,v
+                                        # + gate, up
+        "dots_no_batch": bsd,           # block input only
+        "full": bsd,                    # block input only
+    }
+    policies = cfg.block_remat_policies()
+    return {
+        "total_bytes": sum(per_block[p] for p in policies),
+        "per_block_bytes": per_block,
+        "policies": policies,
+    }
 
 
 # Named sizes (the JAX package's presets).

@@ -31,10 +31,16 @@ __all__ = [
     "snapshot", "span",
 ]
 
-#: Span/event sites the port records (the serving, training and overlap
-#: subset of the JAX package's catalogue, same names).
+#: Span/event sites the port records (the serving, training, input
+#: pipeline, checkpoint, chaos and overlap subset of the JAX package's
+#: catalogue, same names).
 SITES = (
     "train.step",          # one training step (fit_epoch; global step)
+    "data.wait",           # consumer wait on the prefetch queue
+    "data.produce",        # host batch production (producer thread)
+    "data.device_put",     # host->device staging copy
+    "checkpoint.publish",  # crash-atomic checkpoint write (_atomic_publish)
+    "chaos.inject",        # a chaos rule fired (instant, first-class)
     "serve.queued",        # request arrival -> admission (per request)
     "serve.prefill_chunk", # one prefill chunk computed (per request)
     "serve.step",          # one mixed/decode engine step (batch-wide)

@@ -11,10 +11,11 @@ the state carries them and the step count.
 
 ``overlap=True`` launches each gradient bucket's allreduce from the
 backward's hooks (``optim.DistributedOptimizer``'s machinery), and
-:func:`zero_train_setup` builds the ZeRO stage-1 trainer.  Not ported
-yet (queued in ROADMAP): the integrity guard (``guard=``), two-level
-ZeRO (``hierarchical=``, ``dcn_compression=``) and ``fit_epoch``'s
-checkpoint arguments.
+:func:`zero_train_setup` builds the ZeRO stage-1 trainer.
+:func:`fit_epoch` drives an epoch from a loader (``data.DataLoader``)
+with periodic crash-atomic checkpoints (:mod:`.checkpoint`).  Not
+ported yet (queued in ROADMAP.md): the integrity guard (``guard=``) and
+two-level ZeRO (``hierarchical=``, ``dcn_compression=``).
 """
 
 from __future__ import annotations
@@ -24,12 +25,15 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from . import chaos as _chaos
+from . import checkpoint as _checkpoint
 from . import trace
 from .functions import broadcast_optimizer_state, broadcast_parameters
 from .models.resnet import running_stats
 from .ops import collective_ops
 from .ops.reduce_ops import Average, ReduceOp
 from .optim import ZeroDistributedOptimizer, _BucketReducer
+from .utils.logging import set_log_context
 
 
 @dataclasses.dataclass
@@ -197,17 +201,59 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
 
 
 def fit_epoch(step: Callable, state: TrainState, loader,
-              epoch: Optional[int] = None):
-    """Drive one epoch of ``step`` over ``loader`` (any iterable of
-    ``(inputs, labels)`` batches), each step under a ``train.step`` span
-    numbered by the global step and tagged with ``epoch``.  Returns
-    ``(state, last_loss)`` with the loss fetched to the host (``None``
-    for an empty loader)."""
+              epoch: Optional[int] = None, *,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 0,
+              checkpoint_keep: Optional[int] = None,
+              guard=None):
+    """Drive one epoch of ``step`` over ``loader`` (a
+    :class:`~.data.DataLoader`, or any iterable of ``(inputs, labels)``
+    batches); ``loader.set_epoch(epoch)`` is called first where the
+    loader has it.  The loader stages batch N+1 on the card while the
+    step computes batch N, so this loop adds no synchronisation.
+
+    Each step passes the ``training.step`` chaos point first; while the
+    trace recorder is on it runs under a ``train.step`` span numbered by
+    the global step (``state.step + 1``) and tagged with ``epoch``, and
+    the structured log's ``step`` field carries the same number.
+
+    With ``checkpoint_dir`` and ``checkpoint_every`` set, rank 0 writes
+    a crash-atomic checkpoint every ``checkpoint_every`` batches
+    (:func:`~.checkpoint.save_checkpoint` keyed by ``state.step``),
+    keeping the newest ``checkpoint_keep`` (default 3); pair it with
+    :func:`~.checkpoint.restore_checkpoint` before training so a
+    restarted job resumes.  ``guard`` (the integrity guard) is not
+    ported yet and raises.
+
+    Returns ``(state, last_loss)`` with the loss fetched to the host
+    (the end-of-epoch sync point; ``None`` for an empty loader)."""
+    if guard is not None:
+        raise NotImplementedError(
+            "fit_epoch(guard=...): the integrity guard (guard.py) is not "
+            "ported yet; queued in ROADMAP.md next to elastic")
+    if epoch is not None and hasattr(loader, "set_epoch"):
+        loader.set_epoch(epoch)
+    if checkpoint_keep is None:
+        checkpoint_keep = 3
     loss = None
+    batches = 0
+    tracing = trace.enabled()
     for inputs, labels in loader:
-        with trace.span("train.step", step=state.step + 1,
-                        epoch=-1 if epoch is None else epoch):
+        if _chaos.active:
+            _chaos.raise_point("training.step")
+        if tracing:
+            step_no = state.step + 1
+            set_log_context(step=step_no)
+            with trace.span("train.step", step=step_no,
+                            epoch=-1 if epoch is None else epoch):
+                state, loss = step(state, inputs, labels)
+        else:
             state, loss = step(state, inputs, labels)
+        batches += 1
+        if (checkpoint_dir and checkpoint_every
+                and batches % checkpoint_every == 0):
+            _checkpoint.save_checkpoint(checkpoint_dir, state, state.step,
+                                        keep=checkpoint_keep)
     return state, (None if loss is None else float(loss))
 
 

@@ -795,3 +795,101 @@ def test_world4_nccl_rank_ordered_sums_and_training():
                                           for s in range(world)]))
         np.testing.assert_array_equal(res["adasum"],
                                       adasum_combine_rows(rows).numpy())
+
+
+# -- the training loop (remat, the prefetcher) on the card ---------------------
+
+
+def _remat_loss_grads(policy):
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import Transformer
+
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=64, max_seq_len=256,
+                            dtype=torch.bfloat16, attention_impl="flash",
+                            remat_policy=policy)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda", param_dtype=torch.float32)
+    model = Transformer(cfg, params=params)
+    toks = torch.randint(0, 128, (2, 129), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    before = tfa.flash_fwd_cuda.sm90_launches
+    loss = training.softmax_cross_entropy(model(toks[:, :-1]), toks[:, 1:])
+    loss.backward()
+    torch.cuda.synchronize()
+    return (loss.detach(), [p.grad for p in model.parameters()],
+            tfa.flash_fwd_cuda.sm90_launches - before)
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch", "full"])
+def test_transformer_remat_on_card_recomputes_the_kernel(policy):
+    """bf16 through the sm90 kernels: the remat backward runs the flash
+    forward again (two launches a layer) and gives the loss and every
+    gradient of the plain run bit for bit."""
+    _need_card()
+    loss0, grads0, fwd0 = _remat_loss_grads("none")
+    loss, grads, fwd = _remat_loss_grads(policy)
+    assert (fwd0, fwd) == (2, 4)
+    assert torch.equal(loss, loss0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
+
+
+def test_resnet_remat_on_card_is_bit_equal_and_moves_stats_once():
+    """ResNet depths [1, 1, 1, 1] in bf16 on the card: remat gives the
+    plain run's loss, gradients and running statistics bit for bit; the
+    stats and apply kernels run once more for each norm of a block."""
+    _need_card()
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.models import resnet as tr
+    from horovod_tpu_torch.ops import fused_norm as fn
+
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn((4, 64, 64, 3), generator=g, device="cuda")
+    y = torch.randint(0, 10, (4,), generator=g, device="cuda")
+    out = []
+    for remat in (False, True):
+        model = ResNet(stage_sizes=[1, 1, 1, 1], block_cls=tr.BottleneckBlock,
+                       num_filters=16, num_classes=10, dtype=torch.bfloat16,
+                       stem="space_to_depth", remat=remat, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+        before = (fn.bn_stats_cuda.launches, fn.bn_dx_cuda.launches)
+        loss = training.softmax_cross_entropy(model(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        out.append((loss.detach(), [p.grad for p in model.parameters()],
+                    tr.running_stats(model),
+                    (fn.bn_stats_cuda.launches - before[0],
+                     fn.bn_dx_cuda.launches - before[1])))
+    (l0, g0, s0, n0), (l1, g1, s1, n1) = out
+    sites = 1 + 4 * 4  # the stem, and four norms in each block
+    assert n0 == (sites, sites) and n1 == (2 * sites - 1, sites)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+
+
+def test_prefetcher_on_card_orders_copies_before_the_step():
+    """Batches staged on the side stream arrive on the card intact while
+    the consumer's stream is kept busy (a spin before each read), over
+    more batches than the queue holds, so the allocator reuses staged
+    memory: every batch equals its host batch, read on the consumer's
+    stream."""
+    _need_card()
+    from horovod_tpu_torch import data
+
+    rs = np.random.RandomState(0)
+    host = [(rs.randint(0, 255, (64, 56, 56, 3)).astype(np.float32),
+             np.arange(64, dtype=np.int32) + i) for i in range(12)]
+    pf = data.DevicePrefetcher(iter(host), depth=2, device="cuda",
+                               cast="bfloat16")
+    n = 0
+    for (x, y), (a, b) in zip(pf, host, strict=True):
+        assert x.device.type == "cuda" and x.dtype == torch.bfloat16
+        assert y.dtype == torch.int32
+        torch.cuda._sleep(2_000_000)  # the step's stream lags the copies
+        want = torch.from_numpy(a).to(torch.bfloat16).cuda()
+        assert torch.equal(x, want) and torch.equal(y.cpu(),
+                                                    torch.from_numpy(b))
+        n += 1
+    assert n == pf.stats()["batches"] == 12

@@ -92,6 +92,19 @@ def test_port_imports_and_serves_with_jax_blocked():
         "_, rl = rstep(training.create_train_state(rn, ro),\n"
         "    torch.randn(2, 16, 16, 3), torch.tensor([1, 2]))\n"
         "assert bool(torch.isfinite(rl))\n"
+        "import tempfile\n"
+        "from horovod_tpu_torch import callbacks, chaos, checkpoint, data\n"
+        "rr = ResNetTiny(dtype=torch.float32, device='cpu', remat=True)\n"
+        "rq = torch.optim.SGD(rr.parameters(), lr=0.1)\n"
+        "src = data.ArraySource(np.random.randn(8, 16, 16, 3).astype(\n"
+        "    np.float32), np.arange(8) % 10)\n"
+        "ld = data.DataLoader(src, batch_size=4, device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "st, fl = training.fit_epoch(training.data_parallel_train_step(rr,\n"
+        "    rq), training.create_train_state(rr, rq), ld, epoch=0,\n"
+        "    checkpoint_dir=d, checkpoint_every=1)\n"
+        "assert st.step == 2 and checkpoint.latest_checkpoint(d)\n"
+        "assert checkpoint.restore_checkpoint(d, st).step == 2\n"
         "hvd.shutdown()\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
@@ -138,6 +151,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, torch.Generator().manual_seed(0),
                     param_dtype=torch.float32)
+    from horovod_tpu_torch import data
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.DevicePrefetcher(iter([]), depth=0)
     from horovod_tpu_torch.models import ResNetTiny
 
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -253,8 +253,13 @@ def test_resnet50_bn_sites_are_what_the_forward_runs(stem, monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        ResNetTiny(dtype=torch.float32, device="cpu", remat=True)
+    """An unknown stem raises; ``remat=True`` is ported now: it builds,
+    and its training forward gives remat=False's logits."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 16, 16, 3).astype(np.float32))
+    outs = [ResNetTiny(dtype=torch.float32, device="cpu", remat=r)(x)
+            for r in (False, True)]
+    assert torch.equal(outs[0], outs[1])
     with pytest.raises(ValueError, match="stem"):
         ResNetTiny(dtype=torch.float32, device="cpu", stem="s2d")
 

@@ -98,8 +98,9 @@ def test_state_dict_keeps_flax_names_and_bridge_checks_shapes():
 
 def test_non_paged_flash_forward_is_not_ported_yet():
     """The non-paged flash forward has been ported (it matches the flax
-    logits to 1e-5 in fp32); what is still not ported — activation
-    remat — raises."""
+    logits to 1e-5 in fp32), and so has activation remat: a remat
+    config builds, and its training forward (where the blocks remat)
+    gives the same logits."""
     model, params, tc = _pair(num_kv_heads=2, attention_impl="flash")
     toks = np.random.RandomState(2).randint(0, 97, (2, 11)).astype(np.int32)
     ref = np.asarray(model.apply({"params": params}, jnp.asarray(toks),
@@ -110,8 +111,14 @@ def test_non_paged_flash_forward_is_not_ported_yet():
         out = port(torch.from_numpy(toks).long()).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
     for kw in (dict(remat=True), dict(remat_policy="dots")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TransformerConfig(dtype=torch.float32, **SHAPE, **kw)
+        rc = TransformerConfig(dtype=torch.float32, attention_impl="flash",
+                               num_kv_heads=2, **SHAPE, **kw)
+        remat = Transformer(rc, params=params_from_flax(
+            jax.tree.map(np.asarray, params), rc, device="cpu"))
+        got = remat(torch.from_numpy(toks).long())
+        assert got.requires_grad
+        np.testing.assert_allclose(got.detach().numpy(), ref, atol=1e-5,
+                                   rtol=0)
 
 
 def test_init_params_follow_flax_scales():
