@@ -19,7 +19,8 @@ if any fails:
    serving cases' kernel time is device time, calls enqueued behind a
    spin kernel, with the host-inclusive call time beside it: the small
    cases' kernels are shorter than the wrapper's host work):
-   - the paged forward (serving): decode and chunk cases over gathered
+   - the paged forward (serving): decode, chunk and speculative verify
+     (B=8 rows of C=8 at serving's decode offsets) cases over gathered
      K/V (llama3_8b heads 32/8 at D=128, an MHA case at D=64, a windowed
      case with nonzero ``kv_start``, decode pad slots and chunk rows
      placed before their first key, which must come back exactly zero
@@ -68,7 +69,34 @@ if any fails:
    time by kernel class) and 8 profiled decode steps alone;
 5. oracle: llama3_8b width, 2 layers, fp32 — greedy streams through the
    engine (the CUDA-core forward on mixed steps, the paged decode on
-   decode steps) must equal one-at-a-time plain decode (tie-aware);
+   decode steps), through a speculative engine (``spec_k=4``, the
+   oracle drafter below: its verify steps run the CUDA-core forward)
+   and through a prefill→decode ``FleetRouter`` pair must each equal
+   one-at-a-time plain decode (tie-aware at 1e-4);
+5a. spec: llama3_8b at full width (bf16, 32 layers, seeded weights
+   shared by every engine, ``num_blocks=1024``) on the serving phase's
+   prompts, 32 new tokens each: a plain engine serves them (the first
+   wave through ``submit``, the second through ``attach_source``, the
+   staged intake); a speculative engine (``spec_k=4``) with a
+   ``ModelDrafter`` that drafts each plain stream's continuation, every
+   third draft's second token wrong (acceptance and rollback both
+   certain), then with ``prompt_lookup``; ``run_static`` beside the
+   continuous engine on the same prompts.  Every request completes with
+   32 tokens, every verify step launches the sm90 forward 32 times and
+   the paged decode never, every decode step the paged decode 32 times,
+   every mixed step the sm90 forward 32 times; every stream equals the
+   plain one tie-aware (``BF16_TIE_REL``); decode tokens/s, acceptance
+   and steps per token under each drafter, then 8 verify steps under
+   the profiler;
+5b. disagg: the same model behind ``FleetRouter(replicas=1,
+   prefill_replicas=1)`` (one ``role="prefill"`` and one decode engine
+   on the card) against one ``role="both"`` engine: every request
+   completes with 32 tokens; the prefill replica runs mixed steps only
+   (32 sm90 forwards each, no paged decode); every handoff is warm and
+   booked in ``SERVE_HANDOFFS``; the migrated bytes measured
+   (``SERVE_MIGRATED_BYTES``) equal ``modeled_kvsnap_bytes`` exactly;
+   the streams equal the single engine's tie-aware; export and import
+   time per request, TTFT p50 and tokens/s against the single engine;
 6. training: gpt_small at full width and depth (B=8, S=2048, bf16
    compute over fp32 masters, AdamW 1e-3 at optax's defaults) through
    ``init()`` (world 1 over NCCL), ``replicate_state`` and
@@ -145,8 +173,8 @@ if any fails:
    ZERO_LOSS_REL_TOL; step times and tokens/s; and the gradients'
    rank-ordered allreduce against NCCL's own, in turns.
 
-Each main path (serving, training, overlap, zero, remat, resnet,
-pipeline) is driven with the kernels' launch counts set to 0 just
+Each main path (serving, spec, disagg, training, overlap, zero, remat,
+resnet, pipeline) is driven with the kernels' launch counts set to 0 just
 before it and read just after.  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
@@ -158,9 +186,11 @@ decode at serving's decode, the sm90 dq and dkv at gpt_small's bf16
 backward, the simt ones at gpt_small's fp32 backward (their path: the
 fp32 training oracle),
 the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
-the sm90 forward, dq and dkv launches summed over the training,
-overlap, zero and remat runs, the fused-norm launches over the resnet
-and pipeline runs;
+the sm90 forward launches summed over the serving, spec, disagg,
+training, overlap, zero and remat runs, the paged decode's over the
+serving, spec and disagg runs, dq and dkv over the training, overlap,
+zero and remat runs, the fused-norm launches over the resnet and
+pipeline runs;
 null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -172,6 +202,7 @@ default runs all but dp4.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -524,6 +555,11 @@ def run_paged_case(case):
     return rec
 
 
+#: the verify case's row offsets: the serving prompts' lengths (16, 100,
+#: 300, 480, 700, 64, 286, 456) plus 15 generated tokens
+VERIFY_Q_STARTS = [31, 115, 315, 495, 715, 79, 301, 471]
+
+
 def phase_kernels():
     import torch
 
@@ -565,6 +601,12 @@ def phase_kernels():
     cases.append(make_case(
         "chunk_empty_rows_bf16", b=8, c=64, h=32, h_kv=8, d=128, s=4096,
         dtype=bf, q_starts=[-64, 5, -64, 300, -10, 1000, -64, 4000]))
+    # a speculative verify step (spec_k=4: width 8) over gathered pages:
+    # the serving prompts 16 tokens into their decode, keys up to the
+    # batch's page tier (64 pages of 16)
+    cases.append(make_case(
+        "verify_gqa_bf16", b=8, c=8, h=32, h_kv=8, d=128, s=1024, dtype=bf,
+        q_starts=VERIFY_Q_STARTS))
     pad_lens = [0, 5, 0, 300, 0, 1, 0, 4096]
     cases.append(make_case(
         "decode_pad_rows_bf16", b=8, c=1, h=32, h_kv=8, d=128, s=4096,
@@ -1151,14 +1193,7 @@ def phase_serving():
         f"{eng.pool_bytes / 1e9:.2f} GB ({eng.num_blocks} blocks)")
     eng.first_logits = {}
     eng.token_log = []
-    rs = np.random.RandomState(SEED)
-    vocab = cfg.vocab_size
-    shared = rs.randint(1, vocab, size=256).astype(np.int32)
-    tail = lambda n: rs.randint(1, vocab, size=n).astype(np.int32)  # noqa
-    wave1 = [tail(16), tail(100), np.concatenate([shared, tail(44)]),
-             tail(480), np.concatenate([shared, tail(444)]), tail(64)]
-    wave2 = [np.concatenate([shared, tail(30)]),
-             np.concatenate([shared, tail(200)])]
+    wave1, wave2 = serving_waves(cfg.vocab_size)
     prompts = {}
     torch.cuda.reset_peak_memory_stats()
     since = trace.now()
@@ -1239,6 +1274,21 @@ def phase_serving():
     del eng
     torch.cuda.empty_cache()
     return rec
+
+
+def serving_waves(vocab):
+    """The serving phase's two waves of prompts (16 to 700 tokens; four
+    share a 256-token prefix, two of them in the second wave)."""
+    import numpy as np
+
+    rs = np.random.RandomState(SEED)
+    shared = rs.randint(1, vocab, size=256).astype(np.int32)
+    tail = lambda n: rs.randint(1, vocab, size=n).astype(np.int32)  # noqa
+    wave1 = [tail(16), tail(100), np.concatenate([shared, tail(44)]),
+             tail(480), np.concatenate([shared, tail(444)]), tail(64)]
+    wave2 = [np.concatenate([shared, tail(30)]),
+             np.concatenate([shared, tail(200)])]
+    return wave1, wave2
 
 
 def _count_step_launches(eng):
@@ -1393,8 +1443,13 @@ def _first_tokens(eng):
 
 
 def phase_oracle():
+    """fp32, 2 layers: the plain engine, a speculative engine (the
+    oracle drafter with its wrong tokens) and a prefill→decode router
+    pair each serve the prompts; every stream must equal one-at-a-time
+    dense decode token for token (up to a near-tie, at 1e-4)."""
     import numpy as np
     import torch
+    from horovod_tpu_torch.fleet import FleetRouter
     from horovod_tpu_torch.models import init_params, llama3_8b
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.serving import ServeConfig, ServingEngine
@@ -1404,16 +1459,15 @@ def phase_oracle():
     cfg = llama3_8b(num_layers=2, dtype=torch.float32)
     params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED + 1),
                          device="cuda")
-    eng = ServingEngine(cfg, params, serve=ServeConfig(
-        block_size=16, decode_tiers=(1, 2, 4), prefill_chunk=32),
-        device="cuda")
+    serve = ServeConfig(block_size=16, decode_tiers=(1, 2, 4),
+                        prefill_chunk=32)
+    eng = ServingEngine(cfg, params, serve=serve, device="cuda")
     rs = np.random.RandomState(SEED + 1)
     prompts = [rs.randint(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in (5, 23, 40, 61)]
     n_new = 12
     fwd, dec = fa.flash_fwd_cuda, fa.flash_decode_paged
-    fwd.launches = fwd.sm90_launches = fwd.simt_launches = 0
-    dec.launches = 0
+    _reset_attention_counts()
     ids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
     out = eng.run()
     # fp32: mixed steps through the CUDA-core forward, decode steps
@@ -1424,11 +1478,42 @@ def phase_oracle():
     assert launches["flash_decode_paged"] > 0 \
         and launches["flash_fwd_simt"] > 0 \
         and launches["flash_fwd_sm90"] == 0, launches
-    compared = 0
+    streams = {"plain": [out[rid] for rid in ids]}
+    # the speculative engine: the oracle drafter's verify steps run the
+    # CUDA-core forward (fp32) and its plain decode steps the paged one
+    drafter, _calls = oracle_drafter(prompts, streams["plain"],
+                                     cfg.vocab_size)
+    spec = ServingEngine(cfg, params, serve=dataclasses.replace(
+        serve, spec=True, spec_k=4), drafter=drafter, device="cuda")
+    _reset_attention_counts()
+    sids = [spec.submit(p, max_new_tokens=n_new) for p in prompts]
+    sout = spec.run()
+    spec_launches = _attention_counts()
+    assert spec.spec_accepted_tokens > 0 \
+        and spec.spec_rolled_back_tokens > 0, "drafts never landed or " \
+        "never rolled back"
+    assert spec_launches["flash_fwd_sm90"] == 0 \
+        and spec_launches["flash_fwd_simt"] > 0 and spec.spec_steps > 0 \
+        and spec_launches["flash_decode_paged"] > 0, spec_launches
+    streams["spec"] = [sout[rid] for rid in sids]
+    # a prefill→decode router pair over the same weights
+    router = FleetRouter(lambda role="both": ServingEngine(
+        cfg, params, serve=serve, device="cuda", role=role),
+        replicas=1, prefill_replicas=1)
+    _reset_attention_counts()
+    gids = [router.submit(p, n_new) for p in prompts]
+    rout = router.run_until_drained()
+    fleet_launches = _attention_counts()
+    assert fleet_launches["flash_fwd_sm90"] == 0 \
+        and fleet_launches["flash_fwd_simt"] > 0 \
+        and fleet_launches["flash_decode_paged"] > 0, fleet_launches
+    assert sum(router.handoffs.values()) == len(prompts), router.handoffs
+    streams["fleet"] = [rout[g] for g in gids]
+    compared = {k: 0 for k in streams}
     with torch.inference_mode():
-        for rid, p in zip(ids, prompts):
+        for i, p in enumerate(prompts):
             toks = list(p)
-            for i in range(n_new):
+            for j in range(n_new):
                 x = torch.as_tensor(toks, dtype=torch.long,
                                     device="cuda")[None]
                 logits = eng.model(x)[0, -1].float()
@@ -1436,17 +1521,504 @@ def phase_oracle():
                 if float(top2[0] - top2[1]) < 1e-4:
                     break  # a near-tie: the rest of the stream may fork
                 t = int(torch.argmax(logits))
-                assert int(out[rid][i]) == t, (
-                    f"request {rid} token {i}: engine {int(out[rid][i])} "
-                    f"!= reference {t}")
-                compared += 1
+                for k, ss in streams.items():
+                    assert int(ss[i][j]) == t, (
+                        f"{k}: request {i} token {j}: engine "
+                        f"{int(ss[i][j])} != reference {t}")
+                    compared[k] += 1
                 toks.append(t)
-    log(f"  oracle: {compared}/{len(ids) * n_new} tokens compared, all "
-        f"equal; launches {json.dumps(launches)}")
-    assert compared >= len(ids) * n_new // 2, "too few tokens compared"
-    del eng
+    rec = dict(compared=compared, plain_launches=launches,
+               spec_launches=spec_launches, fleet_launches=fleet_launches,
+               launches={k: launches[k] + spec_launches[k]
+                         + fleet_launches[k] for k in launches},
+               spec_accepted=spec.spec_accepted_tokens,
+               spec_rolled_back=spec.spec_rolled_back_tokens,
+               handoffs=router.handoffs)
+    log(f"  oracle: {json.dumps(rec)} of {len(ids) * n_new} tokens each, "
+        f"all equal")
+    assert all(n >= len(ids) * n_new // 2 for n in compared.values()), \
+        "too few tokens compared"
+    del eng, spec, router
     torch.cuda.empty_cache()
-    return dict(compared=compared, launches=launches)
+    return rec
+
+
+def _reset_attention_counts():
+    """Set the serving kernels' launch counts to 0."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    fwd, dec = fa.flash_fwd_cuda, fa.flash_decode_paged
+    fwd.launches = fwd.sm90_launches = fwd.simt_launches = 0
+    dec.launches = 0
+
+
+def _attention_counts():
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    fwd, dec = fa.flash_fwd_cuda, fa.flash_decode_paged
+    return {"flash_decode_paged": dec.launches,
+            "flash_fwd_sm90": fwd.sm90_launches,
+            "flash_fwd_simt": fwd.simt_launches}
+
+
+def oracle_drafter(prompts, streams, vocab):
+    """A ``ModelDrafter`` that drafts each request's known continuation
+    (``streams[i]`` after ``prompts[i]``) while the request's stream
+    still follows it (once a bf16 stream forks on a tie, it drafts
+    nothing), with the second token of every third draft replaced by a
+    wrong one: acceptance and rollback are then both certain.  Returns
+    (drafter, call counter)."""
+    import numpy as np
+    from horovod_tpu_torch.serving import ModelDrafter
+
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    calls = [0]
+
+    def draft(tokens, k):
+        toks = np.asarray(tokens)
+        for i in order:
+            p = prompts[i]
+            if len(toks) >= len(p) and np.array_equal(toks[:len(p)], p):
+                n = len(toks) - len(p)
+                if not np.array_equal(toks[len(p):], streams[i][:n]):
+                    return []  # forked from the known stream
+                d = [int(t) for t in streams[i][n:n + k]]
+                calls[0] += 1
+                if calls[0] % 3 == 0 and len(d) >= 2:
+                    d[1] = (d[1] + 1) % vocab
+                return d
+        return []
+    return ModelDrafter(draft), calls
+
+
+#: bf16 streams are compared tie-aware: the verify step's logits come
+#: from the chunk kernel and a decode step's from the paged decode
+#: kernel (and a prefix hit or a two-tier fleet prefills the tail in
+#: another chunk), so two streams may take different tokens where
+#: logits nearly tie.  Each path's logits are within 5e-2 of max|logit|
+#: of a dense forward (the serving phase's first-token check), so a
+#: path can pick a token whose dense logit lies below the dense maximum
+#: by up to twice that.
+BF16_TIE_REL = 0.1
+
+
+def tie_aware_equal(model, prompt, got, want, what):
+    """``got`` equals ``want``, or at their first difference both tokens'
+    logits in a dense cache-free forward lie within ``BF16_TIE_REL`` of
+    its largest |logit| below its maximum (so its top-2 gap does too).
+    Returns the first differing position (None when equal)."""
+    import numpy as np
+    import torch
+
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    diff = np.flatnonzero(got != want)
+    if not diff.size:
+        return None
+    i = int(diff[0])
+    toks = np.concatenate([prompt, want[:i]]).astype(np.int64)
+    with torch.inference_mode():
+        logits = model(torch.as_tensor(toks, device="cuda")[None])[0, -1]
+    logits = logits.float()
+    top = float(logits.max())
+    below = [top - float(logits[int(t)]) for t in (got[i], want[i])]
+    bound = BF16_TIE_REL * float(logits.abs().max())
+    log(f"  {what}: streams fork at token {i} ({int(got[i])} vs "
+        f"{int(want[i])}), their dense logits {below[0]:.4g} and "
+        f"{below[1]:.4g} below the maximum (bound {bound:.4g})")
+    assert max(below) < bound, \
+        f"{what}: streams differ at token {i} on no tie"
+    return i
+
+
+def _kinds_since(since):
+    """The ``serve.step`` spans' kinds since ``since``, in order."""
+    from horovod_tpu_torch import trace
+
+    return [args["kind"] for site, _t, _d, args, _tid in trace.snapshot(since)
+            if site == "serve.step" and args]
+
+
+def _per_kind(per_step, kinds):
+    """Label each counted step (``_count_step_launches``) with its span
+    kind: a verify step runs ``_mixed_step`` but records ``spec``."""
+    assert len(per_step) == len(kinds), (len(per_step), len(kinds))
+    out = []
+    for (fn_kind, *c), kind in zip(per_step, kinds):
+        assert fn_kind == ("mixed" if kind in ("mixed", "spec") else kind), (
+            fn_kind, kind)
+        out.append((kind, *c))
+    return out
+
+
+def _check_step_launches(per_kind, n_layers, allowed=("mixed", "decode",
+                                                      "spec")):
+    """Every mixed and verify step launches the sm90 forward and every
+    decode step the paged decode kernel once per layer, nothing else."""
+    want = {"mixed": (0, n_layers, 0), "spec": (0, n_layers, 0),
+            "decode": (n_layers, 0, 0)}
+    wrong = [(k, c) for k, *c in per_kind
+             if k not in allowed or tuple(c) != want[k]]
+    assert not wrong, (f"steps whose (paged decode, sm90, simt) launches "
+                       f"differ from {want}: {wrong[:4]}")
+    return {k: sum(1 for x in per_kind if x[0] == k) for k in allowed}
+
+
+def _emitted_by_kind(eng):
+    """Wrap ``eng._emit`` (an instance attribute, removed by ``del``) to
+    count the tokens emitted after each step kind."""
+    counts = {}
+    emit = eng._emit
+
+    def counted(seq, token, now):
+        kind = eng._last_step[0] if eng._last_step else None
+        counts[kind] = counts.get(kind, 0) + 1
+        return emit(seq, token, now)
+    eng._emit = counted
+    return counts
+
+
+def _decode_rate(since, emitted):
+    """Tokens emitted by decode and verify steps over those steps' wall
+    time (their ``serve.step`` spans), and steps per emitted token."""
+    from horovod_tpu_torch import trace
+
+    dur = {"decode": 0.0, "spec": 0.0}
+    n = {"decode": 0, "spec": 0}
+    for site, _t, d, args, _tid in trace.snapshot(since):
+        if site == "serve.step" and args and args["kind"] in dur:
+            dur[args["kind"]] += d
+            n[args["kind"]] += 1
+    toks = emitted.get("decode", 0) + emitted.get("spec", 0)
+    secs = dur["decode"] + dur["spec"]
+    return dict(decode_tokens=toks, decode_steps=n["decode"],
+                spec_steps=n["spec"],
+                decode_tokens_per_s=toks / secs if secs else None,
+                steps_per_token=(n["decode"] + n["spec"]) / max(1, toks),
+                decode_step_ms=(1e3 * dur["decode"] / n["decode"]
+                                if n["decode"] else None),
+                spec_step_ms=(1e3 * dur["spec"] / n["spec"]
+                              if n["spec"] else None))
+
+
+SPEC_NEW = 32
+
+
+def phase_spec():
+    """llama3_8b, bf16, full width: speculative decoding and the staged
+    intake on the card (module docstring, phase spec)."""
+    import torch
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.models import init_params, llama3_8b
+    from horovod_tpu_torch.serving import (
+        ModelDrafter, PromptLookupDrafter, Request, ServeConfig,
+        ServingEngine,
+    )
+
+    cfg = llama3_8b(dtype=torch.bfloat16)
+    n = cfg.num_layers
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    serve = ServeConfig(block_size=16, num_blocks=1024,
+                        decode_tiers=(1, 2, 4, 8), prefill_chunk=256)
+    wave1, wave2 = serving_waves(cfg.vocab_size)
+    prompts = wave1 + wave2
+    plain = ServingEngine(cfg, params, serve=serve, device="cuda")
+    warmed = plain.warmup()
+    launches = {"flash_decode_paged": 0, "flash_fwd_sm90": 0,
+                "flash_fwd_simt": 0}
+
+    def counted_run(eng, drive):
+        """Drive ``eng`` with the kernels' counts set to 0 just before
+        and read just after; per-step launches by span kind."""
+        per_step = _count_step_launches(eng)
+        emitted = _emitted_by_kind(eng)
+        torch.cuda.synchronize()
+        since = trace.now()
+        _reset_attention_counts()
+        t0 = time.perf_counter()
+        out = drive()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _attention_counts()
+        del eng._decode_step, eng._mixed_step, eng._emit
+        for k in launches:
+            launches[k] += got[k]
+        per_kind = _per_kind(per_step, _kinds_since(since))
+        return out, wall, per_kind, emitted, since
+
+    # 1. the plain engine: wave 1 through submit, wave 2 through the
+    #    staged intake (an iterator of Requests)
+    def drive_plain():
+        ids = [plain.submit(p, max_new_tokens=SPEC_NEW) for p in wave1]
+        plain.run()
+        plain.attach_source(iter([
+            Request(id=10_000 + i, prompt=p, max_new_tokens=SPEC_NEW)
+            for i, p in enumerate(wave2)]))
+        out = plain.run()
+        return [out[r] for r in ids] + [out[10_000 + i]
+                                        for i in range(len(wave2))]
+
+    want, wall, per_kind, emitted, since = counted_run(plain, drive_plain)
+    assert all(len(x) == SPEC_NEW for x in want), "short stream"
+    plain_steps = _check_step_launches(per_kind, n, ("mixed", "decode"))
+    plain_rate = _decode_rate(since, emitted)
+    recs = {"plain": dict(wall_s=wall, steps=plain_steps, **plain_rate)}
+    log("  plain: " + json.dumps(recs["plain"]))
+
+    # 2. the speculative engine, the oracle drafter (known continuation,
+    #    every third draft's second token wrong)
+    drafter, calls = oracle_drafter(prompts, want, cfg.vocab_size)
+    spec = ServingEngine(cfg, params, serve=dataclasses.replace(
+        serve, spec=True, spec_k=4), drafter=drafter, device="cuda")
+    spec_warmed = spec.warmup()
+
+    def drive_spec():
+        ids = [spec.submit(p, max_new_tokens=SPEC_NEW) for p in wave1]
+        spec.run()
+        ids += [spec.submit(p, max_new_tokens=SPEC_NEW) for p in wave2]
+        out = spec.run()
+        return [out[r] for r in ids]
+
+    for name, drafter_obj in (("oracle", None),
+                              ("prompt_lookup", PromptLookupDrafter())):
+        if drafter_obj is not None:
+            spec._drafter = drafter_obj
+        c0 = (spec.spec_drafted_tokens, spec.spec_accepted_tokens,
+              spec.spec_rolled_back_tokens)
+        got, wall, per_kind, emitted, since = counted_run(spec, drive_spec)
+        assert all(len(x) == SPEC_NEW for x in got), "short stream"
+        steps = _check_step_launches(per_kind, n)
+        drafted, accepted, rolled = (
+            a - b for a, b in zip((spec.spec_drafted_tokens,
+                                   spec.spec_accepted_tokens,
+                                   spec.spec_rolled_back_tokens), c0))
+        forks = [tie_aware_equal(spec.model, p, g, w, f"{name} request {i}")
+                 for i, (p, g, w) in enumerate(zip(prompts, got, want))]
+        recs[name] = dict(wall_s=wall, steps=steps, drafted=drafted,
+                          accepted=accepted, rolled_back=rolled,
+                          acceptance_rate=accepted / max(1, drafted),
+                          forks=forks, **_decode_rate(since, emitted))
+        log(f"  spec ({name}): " + json.dumps(recs[name]))
+        if name == "oracle":
+            assert accepted > 0 and rolled > 0, (accepted, rolled)
+            assert steps["spec"] > 0
+    assert plain.program_count == warmed and \
+        spec.program_count == spec_warmed, "a step ran outside the menu"
+
+    # 3. run_static on the plain engine, beside the continuous engine on
+    #    the same prompts all at once (prefix cache cleared before each)
+    reqs = [Request(id=20_000 + i, prompt=p, max_new_tokens=SPEC_NEW)
+            for i, p in enumerate(prompts)]
+    plain.allocator.clear_cache()
+    static, static_wall, per_kind, _e, _s = counted_run(
+        plain, lambda: plain.run_static(reqs, batch_size=8))
+    _check_step_launches(per_kind, n, ("mixed", "decode"))
+    for i, (p, w) in enumerate(zip(prompts, want)):
+        assert len(static[20_000 + i]) == SPEC_NEW
+        tie_aware_equal(plain.model, p, static[20_000 + i], w,
+                        f"run_static request {i}")
+    plain.allocator.clear_cache()
+
+    def drive_cont():
+        ids = [plain.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+        out = plain.run()
+        return [out[r] for r in ids]
+
+    cont, cont_wall, per_kind, _e, _s = counted_run(plain, drive_cont)
+    _check_step_launches(per_kind, n, ("mixed", "decode"))
+    total = SPEC_NEW * len(prompts)
+    recs["static"] = dict(static_tokens_per_s=total / static_wall,
+                          continuous_tokens_per_s=total / cont_wall,
+                          static_wall_s=static_wall,
+                          continuous_wall_s=cont_wall)
+    log("  run_static vs continuous: " + json.dumps(recs["static"]))
+
+    # 4. eight verify steps under the profiler; a drafter that always
+    #    proposes k tokens (the last token repeated) keeps every row
+    #    drafting, and a verify step's work does not depend on how
+    #    many of its drafts are accepted
+    spec._drafter = ModelDrafter(lambda toks, k: [int(toks[-1])] * k)
+    recs["profile"] = profile_verify(spec, prompts)
+    log(f"  spec launches: {json.dumps(launches)}")
+    del plain, spec, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, **recs)
+
+
+VERIFY_PROFILE_STEPS = 8
+
+
+def profile_verify(eng, prompts):
+    """Device time by kernel class, busy share and kernels per step over
+    ``VERIFY_PROFILE_STEPS`` verify steps of the 8-row batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch import trace
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=2 * SPEC_NEW)
+    sched = eng.scheduler
+    while sched.pending or not all(s.in_decode for s in sched.running):
+        eng.step()
+    torch.cuda.synchronize()
+    steps0 = eng.steps
+    since = trace.now()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(VERIFY_PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = _kinds_since(since)
+    assert kinds == ["spec"] * VERIFY_PROFILE_STEPS, kinds
+    rec = _device_breakdown(prof, wall, eng.steps - steps0)
+    k = max(1, rec["steps"])
+    rec.update(
+        batch=len(sched.running),
+        device_ms_per_step=sum(rec["device_ms_by_class"].values()) / k,
+        device_ms_per_step_by_class={
+            c: v / k for c, v in rec["device_ms_by_class"].items()},
+        wall_ms_per_step=wall * 1e3 / k)
+    log("  verify-step profile: " + json.dumps(rec))
+    eng.run()
+    return rec
+
+
+def phase_disagg():
+    """llama3_8b, bf16, full width: a prefill→decode router pair on one
+    card against one ``role="both"`` engine (module docstring, phase
+    disagg)."""
+    import torch
+    from horovod_tpu_torch.fleet import FleetRouter
+    from horovod_tpu_torch.metrics import instruments as instr
+    from horovod_tpu_torch.models import init_params, llama3_8b
+    from horovod_tpu_torch.ops.comm_model import modeled_kvsnap_bytes
+    from horovod_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg = llama3_8b(dtype=torch.bfloat16)
+    n = cfg.num_layers
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                         device="cuda")
+    serve = ServeConfig(block_size=16, num_blocks=1024,
+                        decode_tiers=(1, 2, 4, 8), prefill_chunk=256)
+
+    def build(role="both"):
+        return ServingEngine(cfg, params, serve=serve, device="cuda",
+                             role=role)
+
+    wave1, wave2 = serving_waves(cfg.vocab_size)
+    prompts = wave1 + wave2
+    launches = {"flash_decode_paged": 0, "flash_fwd_sm90": 0,
+                "flash_fwd_simt": 0}
+    single = build()
+    single.warmup()
+    single.token_log = []
+    per_step = _count_step_launches(single)
+    torch.cuda.synchronize()
+    _reset_attention_counts()
+    t0 = time.perf_counter()
+    ids = [single.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    out = single.run()
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    for k, v in _attention_counts().items():
+        launches[k] += v
+    del single._decode_step, single._mixed_step
+    _check_step_launches(per_step, n, ("mixed", "decode"))
+    want = [out[r] for r in ids]
+    single_ttft = sorted(s - a for s, a in _first_tokens(single))
+    del single
+    torch.cuda.empty_cache()
+
+    router = FleetRouter(build, replicas=1, prefill_replicas=1)
+    pre = next(r for r in router.replicas if r.tier == "prefill")
+    dec = next(r for r in router.replicas if r.tier == "decode")
+    assert pre.engine.role == "prefill" and dec.engine.role == "both"
+    pre_steps = _count_step_launches(pre.engine)
+    dec_steps = _count_step_launches(dec.engine)
+    timing = {"export": [], "import": []}
+
+    def timed(eng, name, key):
+        fn = getattr(eng, name)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing[key].append(time.perf_counter() - t)
+            return res
+        setattr(eng, name, wrapper)
+
+    timed(pre.engine, "export_requests", "export")
+    timed(dec.engine, "import_kv", "import")
+    warm0 = instr.SERVE_HANDOFFS.labels("warm").get()
+    bytes0 = instr.SERVE_MIGRATED_BYTES.get()
+    torch.cuda.synchronize()
+    _reset_attention_counts()
+    t0 = time.perf_counter()
+    gids = [router.submit(p, SPEC_NEW) for p in prompts]
+    res = router.run_until_drained()
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    for k, v in _attention_counts().items():
+        launches[k] += v
+    got = [res[g] for g in gids]
+    assert all(len(x) == SPEC_NEW for x in got), "short stream"
+    # pure roles: the prefill replica ran mixed steps only, each with 32
+    # sm90 forwards, and never the paged decode kernel
+    pre_kinds = _check_step_launches(pre_steps, n, ("mixed",))
+    dec_kinds = _check_step_launches(dec_steps, n, ("mixed", "decode"))
+    assert pre.engine.spec_steps == 0
+    assert sum(c[1] for c in pre_steps) == 0
+    assert router.all_compile_free(), "a tier stepped outside its menu"
+    # every handoff warm, booked, and its measured bytes the model's
+    assert router.handoffs == {"warm": len(prompts), "cold": 0}, \
+        router.handoffs
+    assert instr.SERVE_HANDOFFS.labels("warm").get() - warm0 == len(prompts)
+    for r in router.handoff_records:
+        m = modeled_kvsnap_bytes(r["blocks"], serve.block_size, n,
+                                 cfg.kv_heads, cfg.head_dim, cfg.dtype)
+        assert r["bytes"] == m["wire_bytes"], (r, m)
+    measured = instr.SERVE_MIGRATED_BYTES.get() - bytes0
+    assert measured == router.migrated_bytes == sum(
+        r["bytes"] for r in router.handoff_records)
+    forks = [tie_aware_equal(dec.engine.model, p, g, w, f"fleet request {i}")
+             for i, (p, g, w) in enumerate(zip(prompts, got, want))]
+    ms = lambda xs: sorted(1e3 * x for x in xs)  # noqa: E731
+    exp, imp = ms(timing["export"]), ms(timing["import"])
+    hand = sorted(r["ms"] for r in router.handoff_records)
+    per_req = sorted(a + b for a, b in zip(timing["export"],
+                                           timing["import"]))
+    # the first token comes from the prefill tier (a decode replica's
+    # samples are the handed-off requests' first decode emissions)
+    fleet_ttft = sorted(t for _rid, t in pre.ttft_samples())
+    total = SPEC_NEW * len(prompts)
+    rec = dict(
+        handoffs=router.handoffs, forks=forks,
+        prefill_steps=pre_kinds, decode_steps=dec_kinds,
+        handoff_blocks_export_import_ms=[
+            (r["blocks"], round(1e3 * e, 3), round(1e3 * i, 3))
+            for r, e, i in zip(router.handoff_records, timing["export"],
+                               timing["import"])],
+        migrated_bytes=router.migrated_bytes,
+        export_ms_p50=exp[len(exp) // 2], export_ms_max=exp[-1],
+        import_ms_p50=imp[len(imp) // 2], import_ms_max=imp[-1],
+        export_import_ms_p50=1e3 * per_req[len(per_req) // 2],
+        export_import_ms_max=1e3 * per_req[-1],
+        router_handoff_ms_p50=hand[len(hand) // 2],
+        router_handoff_ms_max=hand[-1],
+        ttft_p50_s=fleet_ttft[len(fleet_ttft) // 2],
+        single_ttft_p50_s=single_ttft[len(single_ttft) // 2],
+        tokens_per_s=total / fleet_wall,
+        single_tokens_per_s=total / single_wall, launches=launches)
+    log("  disagg: " + json.dumps(rec))
+    del router, pre, dec, params
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- phase 6: data-parallel training of gpt_small at full width --------------
@@ -2729,8 +3301,9 @@ def phase_dp4(roots, device="cuda", preset="gpt_small", b=TRAIN_B,
     return runs
 
 
-PHASES = ("kernels", "serving", "oracle", "training", "overlap", "zero",
-          "training_oracle", "remat", "resnet", "resnet_oracle", "pipeline")
+PHASES = ("kernels", "serving", "oracle", "spec", "disagg", "training",
+          "overlap", "zero", "training_oracle", "remat", "resnet",
+          "resnet_oracle", "pipeline")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -2778,7 +3351,8 @@ def bn_entries(bn_kern, resnet):
     return entries
 
 
-def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle):
+def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle,
+                   serving_runs=()):
     """The ``kernels`` JSON line: one entry per kernel and C entry.  The
     forward has two: ``flash_fwd_sm90`` (its numbers at the training
     forward's shape, gpt_small bf16: the main path's) and
@@ -2787,8 +3361,10 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle):
     bf16 backward (the training run's launches) and ``*_simt`` at
     gpt_small's fp32 backward; ``flash_decode_paged`` at
     ``decode_paged_gqa_bf16`` (serving's launches).  ``launches`` come
-    from the main paths' runs (the forwards: serving's plus training's;
-    the simt kernels' from the fp32 oracles, the paths that run them),
+    from the main paths' runs (the forwards: serving's, the spec and
+    disagg phases' (``serving_runs``) and training's; the simt kernels'
+    from the fp32 oracles, the paths that run them; the paged decode:
+    serving's, spec's and disagg's),
     the other numbers from the kernel phase; ``max_abs_err`` over every
     kernel-phase case of that kernel and variant; a phase left out by
     ``--phases`` leaves its numbers null."""
@@ -2797,8 +3373,10 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle):
     bwd_at = {"sm90": at_case.get(("gpt_small_causal", "bfloat16")),
               "simt": at_case.get(("gpt_small_causal", "float32"))}
     fwd_launches = {}
+    more = [r["launches"] for r in serving_runs if r]
     for variant in ("sm90", "simt"):
         runs = [(serving or {}).get("launches_by_variant", {}).get(variant),
+                *(m[f"flash_fwd_{variant}"] for m in more),
                 *((r or {}).get("launches", {}).get(f"flash_fwd_{variant}")
                   for r in (train, train_oracle if variant == "simt" else None,
                             oracle if variant == "simt" else None))]
@@ -2850,7 +3428,9 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle):
     e = dict(name="flash_decode_paged", route="cuda",
              source="horovod_tpu_torch/csrc/flash_decode.cu",
              replaces="horovod_tpu/ops/flash_attention.py:104",
-             launches=serving["paged_decode_launches"] if serving else None,
+             launches=(serving["paged_decode_launches"] if serving else 0)
+             + sum(m["flash_decode_paged"] for m in more)
+             if serving or more else None,
              max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
              bound_by=None, library_ms=None)
     paged = [r for r in kern or () if r.get("kernel") == "flash_decode_paged"]
@@ -2916,10 +3496,16 @@ def main(argv=None) -> int:
     if "serving" in phases:
         log("phase serving:")
         serving = phase_serving()
-    oracle = None
+    oracle = spec = disagg = None
     if "oracle" in phases:
         log("phase oracle:")
         oracle = phase_oracle()
+    if "spec" in phases:
+        log("phase spec:")
+        spec = phase_spec()
+    if "disagg" in phases:
+        log("phase disagg:")
+        disagg = phase_disagg()
     overlap = zero = None
     if {"training", "overlap", "zero"} & set(phases):
         # the overlap and zero phases are held against its losses
@@ -2954,7 +3540,7 @@ def main(argv=None) -> int:
         train = dict(train or {}, launches={k: sum(
             r["launches"][k] for r in runs) for k in TRAIN_COUNTS})
     entries = (kernel_entries(kern, train_kern, serving, train,
-                              train_oracle, oracle)
+                              train_oracle, oracle, (spec, disagg))
                + bn_entries(bn_kern, (resnet, pipeline)))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -1,11 +1,12 @@
 """The port's metric instruments, in one place.
 
 Copied from ``horovod_tpu/metrics/instruments.py``: the instruments the
-serving slice, the overlapped optimizer, ZeRO, the input pipeline, the
-training loop and the chaos engine book, under the same names, label
-sets and buckets (the catalogue in docs/METRICS.md describes them).  The
-collective, fleet, guard and elastic instruments arrive with the slices
-that book them.
+serving slice (speculative decoding, KV migration and the fleet
+router included), the overlapped optimizer, ZeRO, the input pipeline,
+the training loop, the chaos engine, retries and the flight recorder
+book, under the same names, label sets and buckets (the catalogue in
+docs/METRICS.md describes them).  The collective, guard and elastic
+instruments arrive with the slices that book them.
 """
 
 from __future__ import annotations
@@ -136,6 +137,147 @@ SERVE_KV_BLOCKS_PER_SHARD = gauge(
     "KV blocks resident on each shard of the tensor-sharded pool",
 )
 
+#: Tokens proposed by the speculative drafter and fed to verify steps
+#: (docs/SERVING.md speculative section).
+SERVE_SPEC_DRAFTED = counter(
+    "hvd_tpu_serve_spec_drafted_tokens_total",
+    "Draft tokens fed to speculative verify steps",
+)
+
+#: Drafted tokens the greedy verifier accepted; accepted/drafted is the
+#: fleet-wide acceptance rate (each verify step also emits one
+#: non-drafted bonus token, so tokens/step = 1 + accepted/steps).
+SERVE_SPEC_ACCEPTED = counter(
+    "hvd_tpu_serve_spec_accepted_tokens_total",
+    "Draft tokens accepted by greedy verification",
+)
+
+#: Drafted tokens rejected by verification — their speculative KV tail
+#: is rolled back (block-aligned truncation; docs/SERVING.md).
+SERVE_SPEC_ROLLED_BACK = counter(
+    "hvd_tpu_serve_spec_rolled_back_tokens_total",
+    "Draft tokens rejected and rolled back from the paged KV tail",
+)
+
+#: Per-request draft acceptance rate (accepted/drafted over the
+#: request's lifetime), observed at completion for requests that ran
+#: at least one verify step — the distribution behind the when-does-
+#: speculation-pay threshold (docs/SERVING.md).
+SERVE_SPEC_ACCEPT_RATE = histogram(
+    "hvd_tpu_serve_spec_accept_rate",
+    "Per-request speculative-draft acceptance rate at completion",
+    buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0),
+)
+
+#: In-flight requests migrated off a lost replica, by recovery path:
+#: ``warm`` = a verified KV block chain re-registered on the survivor
+#: (chain hashes checked end to end), ``cold`` = prompt+generated
+#: re-prefilled through the prefix cache (docs/SERVING.md fault
+#: tolerance).
+SERVE_MIGRATIONS = counter(
+    "hvd_tpu_serve_migrations_total",
+    "Requests migrated to a surviving replica, by recovery path",
+    ["path"],  # warm / cold
+)
+
+#: Hedged-dispatch outcomes (``HVD_TPU_SERVE_HEDGE``): ``won`` = the
+#: hedge finished first (primary cancelled), ``lost`` = the primary
+#: finished first (hedge cancelled), ``suppressed`` = the retry budget
+#: or the target's load guard withheld the hedge.
+SERVE_HEDGES = counter(
+    "hvd_tpu_serve_hedges_total",
+    "Hedged dispatches by outcome",
+    ["outcome"],  # won / lost / suppressed
+)
+
+#: Wall seconds from detecting a replica loss to each of its requests
+#: being re-dispatched (or completed from its watermark) — the
+#: recovery-latency SLO the serve_bench ``migration_ms`` column reads.
+SERVE_RECOVERY_SECONDS = histogram(
+    "hvd_tpu_serve_recovery_seconds",
+    "Seconds from replica-loss detection to a request's re-dispatch",
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0),
+)
+
+#: Prefill→decode tier handoffs in the disaggregated fleet, by path:
+#: ``warm`` = the kvsnap chain re-registered on the decode replica (its
+#: decode re-prefixes from cache), ``cold`` = the snapshot was dropped
+#: or rejected and the decode replica re-prefilled (docs/FLEET.md).
+SERVE_HANDOFFS = counter(
+    "hvd_tpu_serve_handoffs_total",
+    "Prefill-to-decode tier handoffs, by transfer path",
+    ["path"],  # warm / cold
+)
+
+#: Wall time of one tier handoff: prefill-complete pickup to the
+#: request queued on its decode replica (chain verify + page write +
+#: re-submit) — the latency the two-hop deadline filter budgets for.
+SERVE_HANDOFF_SECONDS = histogram(
+    "hvd_tpu_serve_handoff_seconds",
+    "Seconds from prefill-complete pickup to decode-tier re-dispatch",
+    buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+)
+
+#: Paged-KV payload bytes that crossed a replica boundary warm (tier
+#: handoffs and replica-loss migrations): K/V pages + token streams as
+#: measured on the wire — the number ``modeled_kvsnap_bytes`` must
+#: reproduce exactly (modeled == measured, comm_model idiom).
+SERVE_MIGRATED_BYTES = counter(
+    "hvd_tpu_serve_migrated_kv_bytes_total",
+    "Paged-KV snapshot bytes moved between replicas on warm paths",
+)
+
+# -- fleet autoscaling + routing (fleet/ — docs/FLEET.md) --------------------
+
+#: Capacity the policy engine last decided the fleet should converge
+#: to (training workers or serving replicas, per the autoscaler's
+#: ``kind`` label) — desired vs the live world-size/replica gauges is
+#: the convergence view.
+FLEET_DESIRED_SIZE = gauge(
+    "hvd_tpu_fleet_desired_size",
+    "Capacity the autoscale policy last decided on, by fleet kind",
+    ["kind"],  # train / serve
+)
+
+#: Applied scale actions, by fleet kind and direction.
+FLEET_SCALE_EVENTS = counter(
+    "hvd_tpu_fleet_scale_events_total",
+    "Scale actions the autoscaler applied, by fleet kind and direction",
+    ["kind", "direction"],  # direction: out / in
+)
+
+#: Serving replicas by lifecycle state (ready/draining); retired
+#: replicas leave the gauge.
+FLEET_REPLICAS = gauge(
+    "hvd_tpu_fleet_replicas",
+    "Serving replicas currently held by the router, by lifecycle state",
+    ["state"],
+)
+
+#: Router placement outcomes: ``affinity`` = prefix-index hit chose
+#: the replica, ``least_queue`` = no cached prefix anywhere (fallback),
+#: ``round_robin`` = the non-affinity baseline mode.
+FLEET_ROUTED = counter(
+    "hvd_tpu_fleet_routed_total",
+    "Requests placed by the fleet router, by placement rule",
+    ["route"],
+)
+
+#: The router's sliding-window p99 TTFT — the SLO signal its policy
+#: evaluates (the per-replica histograms stay the durable record).
+FLEET_ROUTER_P99_TTFT = gauge(
+    "hvd_tpu_fleet_router_p99_ttft_seconds",
+    "Sliding-window p99 time-to-first-token observed by the fleet router",
+)
+
+#: Replicas the router marked suspect (ejected from placement, work
+#: re-routed) after ``HVD_TPU_FLEET_REPLICA_ERRORS`` consecutive
+#: submit/step errors or a healthz stall trip.
+FLEET_REPLICA_SUSPECTS = counter(
+    "hvd_tpu_fleet_replica_suspects_total",
+    "Serving replicas marked suspect and ejected by the fleet router",
+)
+
 # -- backward/collective overlap (optim.DistributedOptimizer, ops/overlap.py) -
 
 #: How early each bucket's collective launches: parameters still awaiting
@@ -197,4 +339,25 @@ STEP_DURATION = histogram(
     "Training step wall time, by adapter",
     ["adapter"],
     buckets=DEFAULT_LATENCY_BUCKETS + (25.0, 60.0),
+)
+
+# -- retries (common/retry.py) ------------------------------------------------
+
+#: Attempts one retry_call() needed before success/exhaustion, by site.
+RETRY_ATTEMPTS = histogram(
+    "hvd_tpu_retry_attempts",
+    "Attempts per retry_call invocation, by site",
+    ["site"],
+    buckets=(1, 2, 3, 5, 8, 13, 21, 34),
+)
+
+# -- distributed tracing (trace/) --------------------------------------------
+
+#: Flight-recorder crash bundles written, by trigger reason
+#: (chaos_kill / quarantine / rollback / preempt / restart /
+#: slo_breach — docs/TRACING.md).
+TRACE_BUNDLES = counter(
+    "hvd_tpu_trace_bundles_total",
+    "Flight-recorder crash bundles written, by trigger reason",
+    ["reason"],
 )

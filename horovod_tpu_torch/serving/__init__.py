@@ -2,7 +2,9 @@
 
 Port of ``horovod_tpu.serving``: iteration-level scheduling (Orca) over
 block-granular KV paging (PagedAttention), hash-indexed prefix caching
-and Sarathi-style chunked prefill, with every attention call running the
+and Sarathi-style chunked prefill, speculative decoding (drafted tokens
+verified in one chunk step), KV snapshots for migration and the
+prefill→decode handoff, with every attention call running a
 hand-written paged flash-attention kernel.  Usage::
 
     from horovod_tpu_torch.models import llama3_8b, init_params
@@ -25,21 +27,35 @@ from .kv_cache import (
     make_pools,
     modeled_decode_read_bytes,
     pool_bytes,
+    snap_origin,
 )
 from .scheduler import ContinuousBatchingScheduler, Request, Sequence
+from .speculative import (
+    Drafter,
+    ModelDrafter,
+    PromptLookupDrafter,
+    accept_greedy,
+    make_drafter,
+)
 
 __all__ = [
     "BlockAllocator",
     "ContinuousBatchingScheduler",
+    "Drafter",
+    "ModelDrafter",
     "PREFIX_HASH_ROOT",
     "PagedKVState",
+    "PromptLookupDrafter",
     "Request",
     "Sequence",
     "ServeConfig",
     "ServingEngine",
+    "accept_greedy",
     "blocks_for",
     "chain_hash",
+    "make_drafter",
     "make_pools",
     "modeled_decode_read_bytes",
     "pool_bytes",
+    "snap_origin",
 ]

@@ -1,8 +1,8 @@
 """The serving engine: continuous batching over the paged KV cache.
 
 Port of ``horovod_tpu/serving/engine.py`` (single device): the
-scheduler re-decides the batch every step, and each step runs ONE of two
-program families over *padding tiers* —
+scheduler re-decides the batch every step, and each step runs ONE of
+three program families over *padding tiers* —
 
 * a MIXED step packs the running decode batch plus prefill chunks
   (Sarathi-style chunked prefill: a chunk at offset k is just another
@@ -10,31 +10,49 @@ program families over *padding tiers* —
   tier, chunk tier);
 * a DECODE step, keyed by (batch tier, page tier): the decode kernel
   reads the pools in place through the block tables, no further than the
-  batch's live max-context page tier.
+  batch's live max-context page tier;
+* a speculative VERIFY step (``ServeConfig.spec``): each decode row
+  feeds its last token plus up to ``spec_k`` drafted tokens as one chunk
+  row at its tail, padded to the static width ``spec_w`` and keyed by
+  (batch tier, ``spec_w``, page tier); greedy accept/reject keeps the
+  stream token-identical to plain decode.
 
-Every attention call of either family runs the hand-written kernel of
-``ops/flash_attention.py`` once per layer.  PyTorch runs eagerly, so the
-tiers bound the set of step shapes rather than a set of compiled
-programs (and nothing is booked into the executable-cache counters);
-capturing the tier menu as CUDA graphs is later work.
+Every attention call of every family runs the hand-written kernel of
+``ops/flash_attention.py`` once per layer.  PyTorch runs eagerly, so
+nothing is compiled per shape; the engine still books each step's
+(kind, tier...) key as the JAX engine books its programs
+(:meth:`ServingEngine.program_count`), and :meth:`ServingEngine.warmup`
+books the whole menu, so ``program_count == warmup()`` means no step
+ran outside the menu.
+
+Also ported: the staged intake (:meth:`ServingEngine.attach_source`,
+prompts device-staged by the data pipeline's ``DevicePrefetcher`` while
+steps compute), KV snapshot export/import for replica migration and the
+disaggregated fleet's prefill→decode handoff, the ``role="prefill"``
+engine that stops each request at that handoff, and the static-batching
+baseline :meth:`ServingEngine.run_static`.  The port departs from the
+reference in one place: its pools are updated in place, so an export
+copies only the exported chains' pages to the host (one ``index_select``
+over the block axis, then one copy) and an import writes only the fresh
+blocks (``index_copy_``), where the JAX engine moves the whole pool each
+way.  The snapshot's bytes are the same.
 
 Decoding is greedy (argmax of fp32 logits): batched decode over the
 paged cache emits token for token what one-at-a-time full-context
 decode emits, across admit/evict boundaries.
 
-Not ported yet (``ServeConfig`` fields that select them raise
-``NotImplementedError``): speculative decoding, tensor sharding; also
-the staged intake (``attach_source``), KV snapshot export/import, the
-prefill role, ``run_static`` and the lowered-program views.
+Not ported: tensor sharding (``shards > 1`` raises) and the
+lowered-program views.
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,13 +65,18 @@ from ..models.transformer import Transformer, TransformerConfig
 from ..utils.logging import get_logger
 from .kv_cache import (
     BlockAllocator, PagedKVState, blocks_for, make_pools, pool_bytes,
+    snap_origin,
 )
 from .scheduler import ContinuousBatchingScheduler, Request, Sequence
+from .speculative import Drafter, accept_greedy, make_drafter
 
+_CACHE_HIT = _instr.EXEC_CACHE.labels("hit")
+_CACHE_MISS = _instr.EXEC_CACHE.labels("miss")
 _LAT_FIRST = _instr.SERVE_TOKEN_LATENCY.labels("first")
 _LAT_INTER = _instr.SERVE_TOKEN_LATENCY.labels("inter")
 _STEP_MIXED = _instr.SERVE_STEPS.labels("mixed")
 _STEP_DECODE = _instr.SERVE_STEPS.labels("decode")
+_STEP_SPEC = _instr.SERVE_STEPS.labels("spec")
 _REQ_SUBMITTED = _instr.SERVE_REQUESTS.labels("submitted")
 _REQ_COMPLETED = _instr.SERVE_REQUESTS.labels("completed")
 
@@ -116,7 +139,11 @@ class ServeConfig:
     ``prefill_chunk`` > 0 streams prompt tails in chunks of at most this
     many tokens, each packed into a mixed step beside the decode batch
     (0 = a tail prefills in one chunk); ``prefix_cache`` toggles prompt
-    prefix caching (greedy outputs are bit-identical either way)."""
+    prefix caching (greedy outputs are bit-identical either way).
+    ``spec`` turns speculative decoding on: up to ``spec_k`` tokens
+    drafted by ``spec_drafter`` per decode step, verified in one chunk
+    step at the static width ``spec_w`` (the next power of two >=
+    ``spec_k + 1``); outputs stay bit-identical to plain decode."""
 
     block_size: int = 16
     num_blocks: int = 0  # 0 = auto: full residency for the largest batch
@@ -130,8 +157,9 @@ class ServeConfig:
     deadline_s: float = 0.0
     #: tensor sharding over several cards — not ported yet (> 1 raises)
     shards: int = 1
-    #: speculative decoding — not ported yet (True raises)
     spec: bool = False
+    spec_k: int = 4
+    spec_drafter: str = "prompt_lookup"
 
     @classmethod
     def from_env(cls, **overrides) -> "ServeConfig":
@@ -139,7 +167,8 @@ class ServeConfig:
         fields = dataclasses.asdict(base)
         ints = {"block_size": "BLOCK_SIZE", "num_blocks": "NUM_BLOCKS",
                 "token_budget": "TOKEN_BUDGET", "watermark": "WATERMARK",
-                "prefill_chunk": "PREFILL_CHUNK", "shards": "SHARDS"}
+                "prefill_chunk": "PREFILL_CHUNK", "shards": "SHARDS",
+                "spec_k": "SPEC_K"}
         for field, env in ints.items():
             if field not in overrides:
                 fields[field] = env_int(f"HVD_TPU_SERVE_{env}",
@@ -159,7 +188,41 @@ class ServeConfig:
         if "spec" not in overrides:
             fields["spec"] = bool(env_int("HVD_TPU_SERVE_SPEC",
                                           int(base.spec)))
+        if "spec_drafter" not in overrides:
+            fields["spec_drafter"] = os.environ.get(
+                "HVD_TPU_SERVE_SPEC_DRAFTER", base.spec_drafter)
         return cls(**fields)
+
+
+def _page_tensor(page, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
+    """One ``kvsnap/1`` page (a numpy array; bf16 as 2-byte bits) as a
+    host tensor of the pool's dtype, or ``ValueError`` when its element
+    size, kind or shape differs from the pool's page."""
+    arr = np.asarray(page)
+    size = torch.empty((), dtype=dtype).element_size()
+    if arr.dtype.itemsize != size or tuple(arr.shape) != tuple(shape):
+        raise ValueError(
+            f"snapshot page {arr.dtype}{tuple(arr.shape)} does not fit "
+            f"this pool's {dtype}{tuple(shape)} pages")
+    if dtype == torch.bfloat16:
+        if arr.dtype.kind not in "uiV" and arr.dtype.name != "bfloat16":
+            raise ValueError(
+                f"snapshot page of {arr.dtype} cannot hold bfloat16 bits")
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    want = torch.empty((), dtype=dtype).numpy().dtype
+    if arr.dtype != want:
+        raise ValueError(
+            f"snapshot page of {arr.dtype} does not match this pool's "
+            f"{want}")
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _host_pages(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bf16 as ``uint16`` arrays of its bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 class ServingEngine:
@@ -171,26 +234,41 @@ class ServingEngine:
     'flash'; GQA and sliding windows shrink the cache and the decode
     reads natively.  ``device`` defaults to the first CUDA card and
     raises without one; ``device="cpu"`` runs the kernels' plain
-    versions (the tests).  The KV pools are updated in place."""
+    versions (the tests).  The KV pools are updated in place.
+
+    ``drafter`` overrides ``ServeConfig.spec_drafter`` (and turns
+    speculation on).  ``role="prefill"`` makes the disaggregated fleet's
+    prefill tier: each request stops at the step its prompt completes
+    and its first token emits, and parks an exported ``kvsnap/1`` record
+    in :attr:`handoffs`; such an engine never runs a decode or verify
+    step."""
 
     def __init__(self, cfg: TransformerConfig, params, *,
                  serve: Optional[ServeConfig] = None, device=None,
+                 drafter: Optional[Drafter] = None,
+                 role: str = "both",
                  clock=time.perf_counter):
         if cfg.attention_impl not in ("dot", "flash") or not cfg.causal:
             raise ValueError(
                 "serving requires a causal 'dot' or 'flash' config, got "
                 f"attention_impl={cfg.attention_impl!r} causal={cfg.causal}")
+        if role not in ("both", "prefill"):
+            raise ValueError(
+                f"role must be 'both' or 'prefill', got {role!r}")
         self.serve_cfg = serve = serve or ServeConfig.from_env()
         if serve.shards > 1:
             raise NotImplementedError(
                 f"tensor-sharded serving (shards={serve.shards}) is not "
                 f"ported yet; use shards=1")
-        if serve.spec:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet; use spec=False")
         self.device = resolve_device(device)
         self.cfg = cfg
         self._clock = clock
+        self.role = role
+        #: rid -> (stream, snap, arrival) parked at the handoff boundary
+        #: for the fleet router (prefill role only)
+        self.handoffs: Dict[int, tuple] = {}
+        #: replica name stamped into every export's ``source`` tag
+        self.snap_source: Optional[str] = None
         self.model = Transformer(cfg, params={
             k: v.to(self.device) for k, v in params.items()})
         bs = serve.block_size
@@ -224,6 +302,26 @@ class ServingEngine:
             self.page_tiers = _pow2_tiers(1, self.max_blocks_per_seq)
         else:
             self.page_tiers = (self.max_blocks_per_seq,)
+        # speculative decoding: k drafted tokens verify as ONE chunk row
+        # of width k+1 at the sequence tail, padded to the static spec_w
+        self._drafter: Optional[Drafter] = drafter
+        if self._drafter is None and serve.spec:
+            self._drafter = make_drafter(serve.spec_drafter)
+        if self.role == "prefill":
+            self._drafter = None  # the prefill tier never decodes
+        self.spec_w = 0
+        if self._drafter is not None:
+            if serve.spec_k < 1:
+                raise ValueError(
+                    f"spec_k must be >= 1 with speculation on, got "
+                    f"{serve.spec_k}")
+            self.spec_w = 1 << int(serve.spec_k).bit_length()  # >= k+1
+        #: lifetime speculative counters
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rolled_back_tokens = 0
+        self.spec_steps = 0
+        self.spec_verified_rows = 0
         self.num_blocks = num_blocks
         self.k_pool, self.v_pool = make_pools(
             cfg.num_layers, num_blocks, bs, cfg.kv_heads, cfg.head_dim,
@@ -238,7 +336,13 @@ class ServingEngine:
             self.allocator, token_budget=serve.token_budget,
             watermark=serve.watermark, max_decode_batch=max_batch,
             max_seq_len=cfg.max_seq_len)
+        # queue depth = scheduler pending + staged-but-undrained
+        self.scheduler.staged_depth = lambda: len(self._staging_meta)
+        #: intake gate: False = draining (submit/attach_source reject,
+        #: in-flight work keeps stepping)
+        self.accepting = True
         self.results: Dict[int, np.ndarray] = {}
+        self._ids_seen: set = set()
         self._any_deadline = serve.deadline_s > 0
         #: set to a list to record (request_id, emit_time, arrival) per
         #: token
@@ -249,19 +353,27 @@ class ServingEngine:
         self._last_logits: Optional[torch.Tensor] = None
         self._next_id = 0
         self._last_step: Optional[tuple] = None
+        #: (kind, tier...) step keys booked so far (program_count)
+        self._progs: Dict[tuple, bool] = {}
+        self._staging = None
+        self._staging_meta: collections.deque = collections.deque()
+        self._source_done = True
         #: chunk tokens actually computed by prefill (prefix-cache hits
         #: and pad columns excluded)
         self.prefill_tokens_computed = 0
-        #: steps run (mixed + decode); each runs the attention kernel
-        #: once per layer
+        #: steps run (mixed + decode + verify); each runs the attention
+        #: kernel once per layer
         self.steps = 0
 
-    # -- the two tiered program families ------------------------------------
+    # -- the tiered program families -----------------------------------------
 
     def _mixed_step(self, tables, lens, chunk_lens, tokens, pages=None):
         """One mixed chunked-prefill + decode step: row i writes and
-        attends ``chunk_lens[i]`` new tokens at global offset ``lens[i]``.
-        Returns the greedy token at EVERY position, (B, C) on device."""
+        attends ``chunk_lens[i]`` new tokens at global offset ``lens[i]``
+        (a decode row is a chunk of 1, a verify row a chunk of k+1).
+        Returns the greedy token at EVERY position, (B, C) on device.
+        ``pages`` bounds the unwindowed gather (None = the whole
+        table)."""
         state = PagedKVState(k=self.k_pool, v=self.v_pool, tables=tables,
                              lens=lens, mode="chunk", chunk_lens=chunk_lens,
                              gather_pages=pages)
@@ -280,15 +392,47 @@ class ServingEngine:
                             paged=state)
         return torch.argmax(logits[:, 0].float(), dim=-1)
 
+    def _book_program(self, kind: str, *dims) -> None:
+        """Book one step's (kind, tier...) key into the executable-cache
+        hit/miss counters, as the JAX engine books its programs."""
+        key = (kind,) + dims
+        if key in self._progs:
+            _CACHE_HIT.inc()
+        else:
+            _CACHE_MISS.inc()
+            self._progs[key] = True
+
+    @property
+    def program_count(self) -> int:
+        """Distinct (kind, tier...) step keys booked so far."""
+        return len(self._progs)
+
     def warmup(self) -> int:
-        """Build the kernel library (on a card) and run one step of each
-        program family at its smallest tiers, with all-zero block tables
-        so every write lands in the trash block.  Returns the number of
-        warm-up steps run (one per family)."""
+        """Build the kernel library (on a card), book the WHOLE tier menu
+        — every (batch tier, chunk tier) mixed key, every (batch tier,
+        page tier) decode key and, with speculation on, every (batch
+        tier, ``spec_w``, page tier) verify key: ``|decode_tiers| ×
+        (|chunk_tiers| + |page_tiers| + spec·|page_tiers|)``, the JAX
+        engine's program menu — and run one step of each family at its
+        smallest tiers, with all-zero block tables so every write lands
+        in the trash block.  A ``role="prefill"`` engine books the mixed
+        chunk menu only (its requests leave at the handoff).  Returns
+        the number of keys booked."""
         if self.device.type == "cuda":
             from ..ops import _build
 
             _build.build_all()
+        before = len(self._progs)
+        for bt in self.decode_tiers:
+            for c in self.chunk_tiers:
+                self._book_program("mixed", bt, c, None)
+            if self.role == "prefill":
+                continue
+            for pt in self.page_tiers:
+                self._book_program("decode", bt, pt)
+            if self._drafter is not None:
+                for pt in self.page_tiers:
+                    self._book_program("mixed", bt, self.spec_w, pt)
         bt, c, pt = (self.decode_tiers[0], self.chunk_tiers[0],
                      self.page_tiers[0])
         dev = self.device
@@ -300,31 +444,46 @@ class ServingEngine:
             self._mixed_step(tables, zeros, ones,
                              torch.zeros((bt, c), dtype=torch.long,
                                          device=dev))
-            self._decode_step(tables, ones, torch.zeros(
-                (bt,), dtype=torch.long, device=dev), pt)
+            if self.role != "prefill":
+                self._decode_step(tables, ones, torch.zeros(
+                    (bt,), dtype=torch.long, device=dev), pt)
+            if self._drafter is not None:
+                self._mixed_step(tables, zeros, ones, torch.zeros(
+                    (bt, self.spec_w), dtype=torch.long, device=dev), pt)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        return 2
+        return len(self._progs) - before
 
     # -- request intake ------------------------------------------------------
 
-    def _validate_request(self, prompt_len: int, max_new_tokens: int) -> None:
+    def _validate_request(self, prompt_len: int, max_new_tokens: int,
+                          rid: Optional[int] = None) -> None:
+        who = "" if rid is None else f"request {rid}: "
         if prompt_len < 1:
-            raise ValueError("empty prompt")
+            raise ValueError(f"{who}empty prompt")
         if max_new_tokens < 1:
             raise ValueError(
-                f"max_new_tokens must be >= 1 (the prefill step always "
-                f"emits one token), got {max_new_tokens}")
+                f"{who}max_new_tokens must be >= 1 (the prefill step "
+                f"always emits one token), got {max_new_tokens}")
         if prompt_len + max_new_tokens > self.cfg.max_seq_len:
             raise ValueError(
-                f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds max_seq_len {self.cfg.max_seq_len}")
+                f"{who}prompt ({prompt_len}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_seq_len "
+                f"{self.cfg.max_seq_len}")
 
     def submit(self, prompt, max_new_tokens: int, *, eos_id=None,
                arrival: Optional[float] = None,
                deadline_s: Optional[float] = None,
-               trace_id: Optional[str] = None) -> int:
-        """Enqueue one request; returns its id (key into ``results``)."""
+               trace_id: Optional[str] = None,
+               spec_k: Optional[int] = None) -> int:
+        """Enqueue one request; returns its id (key into ``results``).
+        ``spec_k`` overrides the engine's speculative lookahead for this
+        request (clamped to the engine's; 0 = off, None = inherit)."""
+        if not self.accepting:
+            raise RuntimeError(
+                "engine is draining (accepting=False); submit rejected")
+        if spec_k is not None and spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         self._validate_request(len(prompt), max_new_tokens)
         if deadline_s is None:
@@ -334,13 +493,83 @@ class ServingEngine:
             max_new_tokens=int(max_new_tokens), eos_id=eos_id,
             arrival=self._clock() if arrival is None else arrival,
             deadline_s=deadline_s if deadline_s and deadline_s > 0
-            else None, trace_id=trace_id)
+            else None, trace_id=trace_id, spec_k=spec_k)
         self._next_id += 1
+        self._ids_seen.add(req.id)
         if req.deadline_s:
             self._any_deadline = True
         self.scheduler.submit(Sequence(req=req, context=prompt))
         _REQ_SUBMITTED.inc()
         return req.id
+
+    def _stage_rows(self, requests: Iterable[Request]):
+        """Generator the staging prefetcher consumes: each prompt padded
+        to its prefill tier; metadata rides a side deque in the same
+        (FIFO) order."""
+        for req in requests:
+            # the raise propagates to the consumer via the prefetcher
+            self._validate_request(len(req.prompt), req.max_new_tokens,
+                                   rid=req.id)
+            row = np.zeros(
+                (_tier_for(self.prefill_tiers, len(req.prompt)),), np.int32)
+            row[:len(req.prompt)] = req.prompt
+            self._staging_meta.append(req)
+            yield (row,)
+
+    def attach_source(self, requests: Iterable[Request],
+                      depth: Optional[int] = None) -> None:
+        """Open-loop intake: stage ``requests`` (an iterator that may
+        block until each request's arrival) onto the engine's device
+        through the data pipeline's ``DevicePrefetcher`` while steps
+        compute."""
+        from ..data.prefetch import DevicePrefetcher
+
+        if not self.accepting:
+            raise RuntimeError(
+                "engine is draining (accepting=False); source rejected")
+        if self._staging is not None and not self._source_done:
+            raise RuntimeError("a request source is already attached")
+        gen = self._stage_rows(requests)
+        if self._staging is None:
+            self._staging = DevicePrefetcher(gen, depth=depth,
+                                             device=self.device,
+                                             source_kind="serving")
+        else:
+            self._staging.restart(gen)
+        self._source_done = False
+
+    def _drain_staging(self, block: bool) -> None:
+        if self._staging is None or self._source_done:
+            return
+        while True:
+            item = self._staging.poll(block=block)
+            block = False  # at most one blocking wait per drain
+            if item is self._staging.EXHAUSTED:
+                self._source_done = True
+                self.scheduler._book()
+                return
+            if item is None:
+                self.scheduler._book()  # refresh the staged-depth gauge
+                return
+            req = self._staging_meta.popleft()
+            if req.deadline_s is None and self.serve_cfg.deadline_s > 0:
+                req.deadline_s = self.serve_cfg.deadline_s
+            if req.deadline_s and not req.arrival:
+                # a deadline runs from arrival: a source that left it at
+                # 0.0 starts the clock when the request surfaces
+                req.arrival = self._clock()
+            if req.deadline_s:
+                self._any_deadline = True
+            # caller-chosen ids share `results` with submit()'s counter
+            if req.id in self._ids_seen:
+                raise ValueError(
+                    f"sourced request id {req.id} already in use")
+            self._ids_seen.add(req.id)
+            self._next_id = max(self._next_id, req.id + 1)
+            seq = Sequence(req=req, context=req.prompt)
+            seq.staged = item[0]
+            self.scheduler.submit(seq)
+            _REQ_SUBMITTED.inc()
 
     # -- batch assembly ------------------------------------------------------
 
@@ -356,9 +585,16 @@ class ServingEngine:
         return (torch.from_numpy(tables).to(self.device),
                 torch.from_numpy(lens_arr).to(self.device))
 
-    def _chunk_row(self, s: Sequence, c: int, width: int) -> np.ndarray:
+    def _chunk_row(self, s: Sequence, c: int, width: int):
         """One prefill chunk's tokens — ``context[prefilled:prefilled+c]``
-        — padded to the chunk tier ``width`` (host-assembled)."""
+        — padded to the chunk tier ``width``.  The device-staged row is
+        used only when it IS the chunk (the whole prompt, staged at
+        exactly the step's width); any other chunk assembles on the host
+        (prompt tokens are KBs; the K/V is what is big)."""
+        row = s.staged
+        if row is not None and s.prefilled == 0 and \
+                c == len(s.context) and row.shape[0] == width:
+            return row
         host = np.zeros((width,), np.int64)
         host[:c] = s.context[s.prefilled:s.prefilled + c]
         return host
@@ -384,32 +620,44 @@ class ServingEngine:
 
     def _run_mixed(self, decode_rows: List[Sequence], chunk_sel):
         """Execute ONE mixed step over ``decode_rows`` (one token each)
-        plus ``chunk_sel``; row order: decode rows first, chunk rows
-        after.  Returns the (batch tier, width) per-position argmax grid
-        (host) and the emission time."""
+        plus ``chunk_sel`` — the one step both the engine loop and the
+        static baseline assemble through.  Row order: decode rows first,
+        chunk rows after.  Returns the (batch tier, width) per-position
+        argmax grid (host) and the emission time."""
         n = len(decode_rows) + len(chunk_sel)
         bt = self._batch_tier(n)
         width = _tier_for(
             self.chunk_tiers, max([c for _, c in chunk_sel], default=1))
-        tokens = np.zeros((bt, width), np.int64)
+        rows = []
         lens_list = []
         chunk_lens = np.zeros((bt,), np.int32)
         for i, s in enumerate(decode_rows):
-            tokens[i, 0] = s.generated[-1]
+            host = np.zeros((width,), np.int64)
+            host[0] = s.generated[-1]
+            rows.append(host)
             lens_list.append(s.length - 1)
             chunk_lens[i] = 1
         for j, (s, c) in enumerate(chunk_sel):
-            tokens[len(decode_rows) + j] = self._chunk_row(s, c, width)
+            rows.append(self._chunk_row(s, c, width))
             lens_list.append(s.prefilled)
             chunk_lens[len(decode_rows) + j] = c
+        rows.extend([np.zeros((width,), np.int64)] * (bt - n))
+        if all(isinstance(r, np.ndarray) for r in rows):
+            tokens = torch.from_numpy(np.stack(rows)).to(self.device)
+        else:  # device-staged rows in the mix
+            tokens = torch.stack([
+                torch.from_numpy(r).to(self.device)
+                if isinstance(r, np.ndarray) else r.to(self.device).long()
+                for r in rows])
         tables, lens = self._tables_lens(
             decode_rows + [s for s, _ in chunk_sel], bt, lens_list)
+        self._book_program("mixed", bt, width, None)
         tracing = trace.enabled()
         t0 = trace.now() if tracing else 0.0
         with torch.inference_mode():
             next_tok = self._mixed_step(
                 tables, lens, torch.from_numpy(chunk_lens).to(self.device),
-                torch.from_numpy(tokens).to(self.device))
+                tokens)
         out = next_tok.cpu().numpy()  # device sync: the step's true extent
         if tracing:
             t1 = trace.now()
@@ -428,20 +676,25 @@ class ServingEngine:
         self.steps += 1
         return out, self._clock()
 
+    def _page_tier(self, seqs: List[Sequence], extra=lambda s: 0) -> int:
+        """The batch's live page tier (the whole table when windowed)."""
+        if self.cfg.window is not None:
+            return self.max_blocks_per_seq
+        need = max(blocks_for(s.length + extra(s), self.serve_cfg.block_size)
+                   for s in seqs)
+        return _tier_for(self.page_tiers, need)
+
     def _decode_once(self, seqs: List[Sequence]):
         """One decode step over ``seqs`` (the newest token's K/V is
         written by THIS step, at position length - 1); the unwindowed
         decode reads no further than the batch's live page tier."""
         bt = self._batch_tier(len(seqs))
         cache_lens = [s.length - 1 for s in seqs]
-        pages = self.max_blocks_per_seq
-        if self.cfg.window is None:
-            need = max(blocks_for(s.length, self.serve_cfg.block_size)
-                       for s in seqs)
-            pages = _tier_for(self.page_tiers, need)
+        pages = self._page_tier(seqs)
         tables, lens = self._tables_lens(seqs, bt, cache_lens)
         last = np.zeros((bt,), np.int64)
         last[:len(seqs)] = [s.generated[-1] for s in seqs]
+        self._book_program("decode", bt, pages)
         tracing = trace.enabled()
         t0 = trace.now() if tracing else 0.0
         with torch.inference_mode():
@@ -457,6 +710,98 @@ class ServingEngine:
         self.steps += 1
         return out, self._clock()
 
+    # -- speculative decode --------------------------------------------------
+
+    def _propose_draft(self, s: Sequence) -> None:
+        """Ask the drafter for this sequence's next-step lookahead: the
+        per-request ``spec_k`` clamps below the engine's, and the draft
+        is capped so the verify step never writes past ``max_seq_len``
+        or drafts tokens the budget would discard.  An empty draft
+        means the row decodes plain."""
+        k = s.req.spec_k if s.req.spec_k is not None \
+            else self.serve_cfg.spec_k
+        remaining = s.req.max_new_tokens - (
+            len(s.generated) + (len(s.context) - len(s.req.prompt)))
+        k = min(int(k), self.serve_cfg.spec_k,
+                self.cfg.max_seq_len - s.length - 1, remaining - 1)
+        if k < 1:
+            s.draft = []
+            return
+        stream = s.context if not s.generated else np.concatenate(
+            [s.context, np.asarray(s.generated, np.int32)])
+        s.draft = [int(t) for t in self._drafter.draft(stream, k)][:k]
+
+    def _run_spec_step(self, rows: List[Sequence]):
+        """One verify step over the decode batch: row i feeds ``[last
+        token] + draft`` as a chunk of ``1 + len(draft)`` at its tail
+        offset (``lens = length - 1``, as plain decode), padded to the
+        static width ``spec_w``; draft-free rows ride as chunks of 1.
+        The gather is page-tiered over the live context plus the
+        speculative tail."""
+        bt = self._batch_tier(len(rows))
+        width = self.spec_w
+        tokens_host = np.zeros((bt, width), np.int64)
+        chunk_lens = np.zeros((bt,), np.int32)
+        lens_list = []
+        for i, s in enumerate(rows):
+            fed = [s.generated[-1]] + s.draft
+            tokens_host[i, :len(fed)] = fed
+            chunk_lens[i] = len(fed)
+            lens_list.append(s.length - 1)
+        pages = self._page_tier(rows, extra=lambda s: len(s.draft))
+        tables, lens = self._tables_lens(rows, bt, lens_list)
+        self._book_program("mixed", bt, width, pages)
+        tracing = trace.enabled()
+        t0 = trace.now() if tracing else 0.0
+        with torch.inference_mode():
+            next_tok = self._mixed_step(
+                tables, lens, torch.from_numpy(chunk_lens).to(self.device),
+                torch.from_numpy(tokens_host).to(self.device), pages)
+        out = next_tok.cpu().numpy()  # device sync: the step's true extent
+        if tracing:
+            t1 = trace.now()
+            self._last_step = ("spec", t0, t1)
+            trace.add_span("serve.step", t0, t1, kind="spec",
+                           batch=len(rows),
+                           drafted=int(sum(len(s.draft) for s in rows)),
+                           rids=[s.req.id for s in rows])
+        _STEP_SPEC.inc()
+        self.spec_steps += 1
+        self.steps += 1
+        return out, self._clock()
+
+    def _settle_spec(self, s: Sequence, row_argmax, now: float) -> List[int]:
+        """Greedy accept/reject one verify row, then roll the speculative
+        KV tail back: the sequence keeps the blocks its post-acceptance
+        length occupies (``truncate_tail`` releases the rest through the
+        refcount path).  Positions past the accept point inside the
+        surviving tail block hold rejected-draft K/V that ``lens`` masks
+        and the next step overwrites.  Returns the emitted tokens."""
+        k = len(s.draft)
+        emitted, m = accept_greedy(s.draft, row_argmax[:k + 1])
+        rolled = k - m
+        s.spec_drafted += k
+        s.spec_accepted += m
+        self.spec_drafted_tokens += k
+        self.spec_accepted_tokens += m
+        self.spec_rolled_back_tokens += rolled
+        self.spec_verified_rows += 1
+        _instr.SERVE_SPEC_DRAFTED.inc(k)
+        _instr.SERVE_SPEC_ACCEPTED.inc(m)
+        if rolled:
+            _instr.SERVE_SPEC_ROLLED_BACK.inc(rolled)
+        new_len = s.length + len(emitted)
+        s.blocks = self.allocator.truncate_tail(s.blocks, new_len)
+        s.draft = []
+        if trace.enabled() and self._last_step is not None:
+            t0, t1 = self._last_step[1], self._last_step[2]
+            trace.add_span("serve.spec_verify", t0, t1, rid=s.req.id,
+                           drafted=k, accepted=m, trace=s.req.trace_id)
+            if rolled:
+                trace.event("serve.spec_rollback", rid=s.req.id,
+                            tokens=rolled, trace=s.req.trace_id)
+        return emitted
+
     # -- token emission ------------------------------------------------------
 
     def _observe_token(self, seq: Sequence, token: int, now: float) -> None:
@@ -469,7 +814,7 @@ class ServingEngine:
             trace.event("serve.first_token", rid=seq.req.id,
                         ttft=now - seq.req.arrival, trace=seq.req.trace_id)
             if self._last_step is not None and \
-                    self._last_step[0] == "decode":
+                    self._last_step[0] in ("decode", "spec"):
                 trace.add_span("serve.first_decode", self._last_step[1],
                                self._last_step[2], rid=seq.req.id,
                                trace=seq.req.trace_id)
@@ -484,6 +829,9 @@ class ServingEngine:
         if seq.done:
             trace.event("serve.finish", rid=seq.req.id,
                         tokens=len(seq.generated), trace=seq.req.trace_id)
+            if seq.spec_drafted:
+                _instr.SERVE_SPEC_ACCEPT_RATE.observe(
+                    seq.spec_accepted / seq.spec_drafted)
             self.scheduler.finish(seq)
             self.results[seq.req.id] = self._partial_result(seq)
             _REQ_COMPLETED.inc()
@@ -501,12 +849,193 @@ class ServingEngine:
             _instr.SERVE_REQUESTS.labels("expired").inc()
         self.scheduler.shed.clear()
 
+    def cancel_all(self) -> None:
+        """Abort every request this engine still holds — running,
+        pending, shed or device-staged — publishing each one's partial
+        result (often empty).  The staging producer stops first (it
+        appends to the staged metadata concurrently)."""
+        sched = self.scheduler
+        self._finalize_shed()
+        for seq in list(sched.running):
+            sched.finish(seq)
+            self.results.setdefault(seq.req.id, self._partial_result(seq))
+        for seq in list(sched.pending):
+            self.results.setdefault(seq.req.id, self._partial_result(seq))
+        sched.pending.clear()
+        if self._staging is not None:
+            self._staging.close()
+        for req in list(self._staging_meta):
+            self.results.setdefault(req.id, np.zeros((0,), np.int32))
+        self._staging_meta.clear()
+        self._source_done = True
+        sched._book()
+
+    # -- KV snapshots: migration and the prefill->decode handoff -------------
+
+    def _chain_pages(self, chains: Dict[int, List[int]]) -> Dict[int, list]:
+        """Host (K, V) pages of every block in ``chains`` (rid -> block
+        ids): ONE ``index_select`` over the block axis of each pool for
+        the union of the chains, then one device-to-host copy; each
+        page is a (num_layers, block_size, H_kv, D) view of it."""
+        if not chains:
+            return {}
+        order = sorted({b for bl in chains.values() for b in bl})
+        at = {b: i for i, b in enumerate(order)}
+        idx = torch.tensor(order, dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            sel = torch.stack([self.k_pool.index_select(1, idx),
+                               self.v_pool.index_select(1, idx)])
+            # (2, n, L, bs, H, D); stack and index_select copied, so no
+            # page aliases the pools
+            host = sel.transpose(1, 2).contiguous()
+            if host.is_cuda:
+                # into page-locked memory: a DMA at the link's rate (a
+                # pageable destination is first-touched page by page)
+                dev, host = host, torch.empty(host.shape, dtype=host.dtype,
+                                              pin_memory=True)
+                host.copy_(dev)
+        pages = _host_pages(host)
+        return {rid: [(pages[0, at[b]], pages[1, at[b]]) for b in bl]
+                for rid, bl in chains.items()}
+
+    def export_requests(self, rids: Optional[Iterable[int]] = None
+                        ) -> Dict[int, tuple]:
+        """Snapshot in-flight requests' recoverable state: ``{rid:
+        (tokens_so_far, snap, arrival)}`` where ``tokens_so_far`` is the
+        full verified stream (prompt, tokens folded into the context by
+        evictions, tokens generated since) and ``snap`` (or None) the
+        ``kvsnap/1`` dict of the stream's full, written blocks with
+        their pages (:meth:`BlockAllocator.export_blocks`).  Only
+        verified positions export (the ``tokens_in_cache`` invariant),
+        so an importer's resumed decode is bit-identical.  Unlike the
+        JAX engine, which pulls the whole pool to the host, only the
+        exported chains' pages are copied."""
+        want = set(rids) if rids is not None else None
+        bs = self.serve_cfg.block_size
+        found = []
+        chains: Dict[int, List[int]] = {}
+        for seq in list(self.scheduler.running) + \
+                list(self.scheduler.pending):
+            rid = seq.req.id
+            if want is not None and rid not in want:
+                continue
+            stream = seq.context if not seq.generated else np.concatenate(
+                [seq.context, np.asarray(seq.generated, np.int32)])
+            stream = np.asarray(stream, np.int32)
+            n_full = min(seq.tokens_in_cache // bs, len(seq.blocks))
+            if n_full > 0 and self.allocator.prefix_cache:
+                chains[rid] = list(seq.blocks[:n_full])
+            found.append((seq, stream))
+        pages = self._chain_pages(chains)
+        out: Dict[int, tuple] = {}
+        for seq, stream in found:
+            rid = seq.req.id
+            snap = None
+            if rid in chains:
+                n_full = len(chains[rid])
+                snap = self.allocator.export_blocks(
+                    chains[rid], stream[:n_full * bs], pages[rid],
+                    source=self.snap_source)
+            out[rid] = (stream, snap, seq.req.arrival)
+        for req in list(self._staging_meta):  # staged: prompt-only (cold)
+            if want is None or req.id in want:
+                out[req.id] = (np.asarray(req.prompt, np.int32), None,
+                               req.arrival)
+        return out
+
+    def import_kv(self, snap: dict) -> int:
+        """Re-register a migrated block chain in this engine's allocator
+        and pools (the warm path).  Every page is checked against the
+        pool's element size and page shape, and the chain hashes are
+        verified, before any state changes (``ValueError`` otherwise);
+        index hits cost nothing; only the fresh blocks' pages are
+        written (``index_copy_``).  The chain then parks on the
+        prefix-cache LRU, so the re-submitted request's admission
+        matches it.  Returns the number of matchable blocks."""
+        cfg, bs = self.cfg, self.serve_cfg.block_size
+        shape = (cfg.num_layers, bs, cfg.kv_heads, cfg.head_dim)
+        pages = snap.get("pages") if isinstance(snap, dict) else None
+        host = None
+        if pages:
+            try:
+                host = [(_page_tensor(kp, self.k_pool.dtype, shape),
+                         _page_tensor(vp, self.v_pool.dtype, shape))
+                        for kp, vp in pages]
+            except ValueError as e:
+                raise ValueError(f"{e}{snap_origin(snap)}") from None
+            if len(host) != len(snap.get("hashes") or ()):
+                raise ValueError(
+                    f"snapshot carries {len(host)} pages for "
+                    f"{len(snap.get('hashes') or ())} blocks"
+                    f"{snap_origin(snap)}")
+        blocks, fresh = self.allocator.import_blocks(snap)
+        try:
+            if fresh:
+                if host is None:
+                    raise ValueError(
+                        "snapshot carries no pages but its chain is not "
+                        "fully cached here — cannot warm-import"
+                        + snap_origin(snap))
+                idx = torch.tensor([b for _i, b in fresh], dtype=torch.long,
+                                   device=self.device)
+                cuda = self.device.type == "cuda"
+                for pool, j in ((self.k_pool, 0), (self.v_pool, 1)):
+                    pages_j = [host[i][j] for i, _b in fresh]
+                    # (L, n_fresh, bs, H, D), staged in page-locked memory
+                    # on a card so the copy runs at the link's rate
+                    src = torch.empty(
+                        (shape[0], len(fresh)) + shape[1:], dtype=pool.dtype,
+                        pin_memory=cuda)
+                    torch.stack(pages_j, dim=1, out=src)
+                    pool.index_copy_(1, idx,
+                                     src.to(self.device, non_blocking=cuda))
+        except Exception:
+            # never leave a registered-but-pages-unwritten block matchable
+            for _i, b in fresh:
+                if b in self.allocator._meta:
+                    self.allocator._drop_cache_entry(b)
+            self.allocator.free(blocks)
+            raise
+        self.allocator.free(blocks)  # park the chain, matchable
+        return len(blocks)
+
+    def cancel(self, rid: int) -> bool:
+        """Abort ONE request without publishing a result (the hedged
+        dispatch's loser).  Device-staged rows cannot be plucked
+        mid-stage.  Returns whether the request was found."""
+        sched = self.scheduler
+        for seq in list(sched.running):
+            if seq.req.id == rid:
+                sched.finish(seq)
+                return True
+        for seq in list(sched.pending):
+            if seq.req.id == rid:
+                sched.pending.remove(seq)
+                sched._book()
+                return True
+        return False
+
+    def _handoff(self, seq: Sequence) -> None:
+        """Park a prefill-complete request for the fleet's tier boundary
+        (``role="prefill"``): it exports (stream + ``kvsnap/1`` chain)
+        BEFORE it leaves the scheduler, then ``finish`` parks its full
+        chain on the prefix-cache LRU, still matchable here."""
+        rid = seq.req.id
+        rec = self.export_requests(rids=[rid]).get(rid)
+        self.scheduler.finish(seq)
+        if rec is not None:
+            self.handoffs[rid] = rec
+
     # -- the scheduler loop --------------------------------------------------
 
     def step(self) -> bool:
-        """One iteration: admit (prefix-matching), grow, then run ONE
-        step — a MIXED step whenever prefill work is pending, a decode
-        step otherwise.  Returns False when there is nothing left."""
+        """One iteration: drain staging, admit (prefix-matching), draft
+        (speculation on, decode-only batches), grow, then run ONE step —
+        a MIXED step whenever prefill work is pending, a VERIFY step when
+        any draft is pending, a decode step otherwise.  Returns False
+        when there is nothing left."""
+        idle = not self.scheduler.running and not self.scheduler.pending
+        self._drain_staging(block=idle and not self._source_done)
         if self._any_deadline:
             now = self._clock()
             self.scheduler.cancel_expired(now)
@@ -514,6 +1043,14 @@ class ServingEngine:
             self._finalize_shed()
         else:
             self.scheduler.admit()
+        if self._drafter is not None and all(
+                s.in_decode for s in self.scheduler.running):
+            # drafts propose BEFORE growth (grow_running books the
+            # speculative tail, shedding the draft under pool pressure),
+            # and only for pure-decode batches: the chunk width of a
+            # mixed step is the prefill tier axis
+            for s in self.scheduler.running:
+                self._propose_draft(s)
         self.scheduler.grow_running()
         running = list(self.scheduler.running)
         decode_rows = [s for s in running if s.in_decode]
@@ -546,19 +1083,98 @@ class ServingEngine:
                             self._last_logits[base + j, c - 1].float().cpu())
                     self._emit(s, toks[base + j, c - 1], now)
             self._last_logits = None
+            if self.role == "prefill":
+                # the handoff boundary: a request that just crossed into
+                # decode leaves now (finished rows already published)
+                for s, _c in sel:
+                    if s.in_decode and not s.done:
+                        self._handoff(s)
             return True
         if decode_rows:
+            if any(s.draft for s in decode_rows):
+                out, now = self._run_spec_step(decode_rows)
+                # settle (accept + roll back) BEFORE publication: the
+                # published count follows tokens_in_cache, which can
+                # never reach into the truncated tail
+                emitted = [self._settle_spec(s, out[i], now) if s.draft
+                           else [int(out[i, 0])]
+                           for i, s in enumerate(decode_rows)]
+                for s in decode_rows:
+                    self.scheduler.publish_full_blocks(s)
+                for s, toks in zip(decode_rows, emitted):
+                    for t in toks:
+                        if s.done:  # eos/budget inside an accepted run
+                            break
+                        self._emit(s, t, now)
+                return True
             toks, now = self._decode_once(decode_rows)
             for s in decode_rows:
                 self.scheduler.publish_full_blocks(s)
             for i, s in enumerate(decode_rows):
                 self._emit(s, toks[i], now)
             return True
-        return bool(self.scheduler.pending)
+        return not self._source_done or bool(self.scheduler.pending)
 
     def run(self) -> Dict[int, np.ndarray]:
-        """Drive :meth:`step` until every submitted request has
+        """Drive :meth:`step` until every submitted/staged request has
         completed; returns ``results`` (id -> generated token ids)."""
         while self.step():
             pass
         return self.results
+
+    # -- the static-batching baseline ----------------------------------------
+
+    def run_static(self, requests: List[Request],
+                   batch_size: int) -> Dict[int, np.ndarray]:
+        """Static (request-level) batching baseline: fixed batches held
+        until every member finishes, each member holding a reservation
+        for the batch's worst-case length, no prefix caching and no
+        token-budget pacing.  Runs the same step functions as the engine
+        loop (``_run_mixed`` / ``_decode_once``), so an A/B isolates the
+        scheduling policy."""
+        results: Dict[int, np.ndarray] = {}
+        for r in requests:
+            self._validate_request(len(r.prompt), r.max_new_tokens,
+                                   rid=r.id)
+        for at in range(0, len(requests), batch_size):
+            chunk = requests[at:at + batch_size]
+            seqs = [Sequence(req=r, context=np.asarray(r.prompt, np.int32))
+                    for r in chunk]
+            worst = max(len(r.prompt) + r.max_new_tokens for r in chunk)
+            for s in seqs:
+                got = self.allocator.alloc(
+                    blocks_for(worst, self.serve_cfg.block_size))
+                if got is None:
+                    raise RuntimeError(
+                        "static baseline could not reserve "
+                        f"{worst}-token contiguous KV for a batch of "
+                        f"{len(chunk)} — the reservation waste paging "
+                        "removes")
+                s.blocks = got
+            while True:
+                todo = [s for s in seqs if not s.in_decode]
+                if not todo:
+                    break
+                cap = self.serve_cfg.prefill_chunk or max(self.chunk_tiers)
+                sel = [(s, min(len(s.context) - s.prefilled, cap))
+                       for s in todo]
+                toks, now = self._run_mixed([], sel)
+                for j, (s, c) in enumerate(sel):
+                    s.prefilled += c
+                    if s.in_decode:
+                        self._static_emit(s, toks[j, c - 1], now, results)
+            while not all(s.done for s in seqs):
+                toks, now = self._decode_once(seqs)
+                for i, s in enumerate(seqs):
+                    if not s.done:
+                        self._static_emit(s, toks[i], now, results)
+            for s in seqs:
+                self.allocator.free(s.blocks)
+                s.blocks = []
+        return results
+
+    def _static_emit(self, seq: Sequence, token: int, now: float,
+                     results: Dict[int, np.ndarray]) -> None:
+        self._observe_token(seq, token, now)
+        if seq.done:
+            results[seq.req.id] = np.asarray(seq.generated, np.int32)

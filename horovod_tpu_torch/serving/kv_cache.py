@@ -13,8 +13,13 @@ and a sequence owns ``ceil(len / block_size)`` blocks at any moment.
   this one WRITES THE POOLS IN PLACE (``index_put_``): a pool is ~9 GB at
   llama3_8b width, and a copy per step would double it.
 
-The KV snapshot export/import of the JAX allocator (replica migration)
-is not ported yet.
+The allocator's KV snapshot export/import (``kvsnap/1``: the covered
+token ids, their chain hashes and optionally the per-block K/V pages) is
+the JAX package's, key for key — replica migration and the
+prefill→decode handoff move these dicts between engines of either
+package.  Pages are numpy arrays of shape (num_layers, block_size,
+H_kv, D); numpy has no bfloat16, so the port carries bf16 pages as
+``uint16`` arrays of the same bits (same ``nbytes``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,14 @@ def chain_hash(parent_hash: int, tokens: Tuple[int, ...]) -> int:
     prefix-caching scheme).  Process-local; collisions are safe because
     every index hit is confirmed with a full token-id + parent compare."""
     return hash((parent_hash, tokens))
+
+
+def snap_origin(snap: dict) -> str:
+    """`` (from replica <source>)`` when the snapshot carries its
+    optional ``source`` tag, else an empty string — the suffix every
+    import rejection appends so a bad wire names its sender."""
+    src = snap.get("source")
+    return f" (from replica {src})" if src else ""
 
 
 class BlockAllocator:
@@ -237,6 +250,151 @@ class BlockAllocator:
         self._lru.clear()
         for b in list(self._meta):
             self._drop_cache_entry(b)
+
+    # -- block migration (serving fault tolerance, docs/SERVING.md) ----------
+
+    #: snapshot wire format tag — refuse anything else on import
+    SNAP_FORMAT = "horovod_tpu.serve.kvsnap/1"
+
+    def export_blocks(self, blocks: Sequence[int], tokens: Sequence[int],
+                      pages: Optional[list] = None,
+                      source: Optional[str] = None) -> dict:
+        """Serialize a sequence's FULL-block chain for migration: the
+        covered token ids, the chain hashes recomputed from
+        :data:`PREFIX_HASH_ROOT` (the importer re-verifies them — the
+        end-to-end integrity check a corrupt ``serve.migrate`` wire must
+        fail), and optionally the per-block K/V pages.  ``tokens`` must
+        cover exactly ``len(blocks) * block_size`` positions — only
+        written, verified positions belong in a snapshot (the caller
+        excludes the partial tail and any unsettled draft tokens).
+        ``source`` optionally names the exporting replica; importers
+        fold it into their rejection errors so a corrupt or foreign
+        snapshot names where it came from (a snapshot without the key
+        imports exactly as before — the format stays ``kvsnap/1``).
+        Returns a plain dict (host data only, process-portable given
+        the same ``hash_fn``)."""
+        bs = self.block_size
+        toks = [int(t) for t in tokens]
+        if len(toks) != len(blocks) * bs:
+            raise ValueError(
+                f"export_blocks: {len(blocks)} blocks need exactly "
+                f"{len(blocks) * bs} tokens, got {len(toks)}")
+        hashes: List[int] = []
+        parent = PREFIX_HASH_ROOT
+        for i in range(len(blocks)):
+            parent = self.hash_fn(parent, tuple(toks[i * bs:(i + 1) * bs]))
+            hashes.append(parent)
+        snap = {
+            "format": self.SNAP_FORMAT,
+            "block_size": bs,
+            "tokens": toks,
+            "hashes": hashes,
+            "pages": list(pages) if pages is not None else None,
+        }
+        if source is not None:
+            snap["source"] = str(source)
+        return snap
+
+    def import_blocks(self, snap: dict
+                      ) -> Tuple[List[int], List[Tuple[int, int]]]:
+        """Re-register an exported block chain in THIS allocator.
+
+        Verifies the snapshot first — the chain hashes are recomputed
+        from the carried tokens and compared to the carried hashes, so
+        a corrupted wire (one flipped token byte anywhere) raises
+        ``ValueError`` before any allocator state changes: the
+        ``serve.migrate`` corrupt-detection contract.  Then, per block
+        in chain order: an index hit (same chain hash, full parent +
+        token compare) takes a reference on the existing block — its
+        pages are already correct, nothing to write; a miss allocates a
+        fresh block and registers it under the chain hash.  Returns
+        ``(blocks, fresh)`` where ``fresh`` lists ``(chain_index,
+        block)`` pairs whose pages the caller must fill from
+        ``snap["pages"]`` BEFORE the blocks can serve a gather.  All
+        returned blocks carry one reference owned by the caller (park
+        them via :meth:`free` once pages are written, or hand them to a
+        sequence).  All-or-nothing: a pool too small mid-chain rolls
+        back every reference and registration taken so far.
+
+        Rejection errors name the exporting replica when the snapshot
+        carries a ``source`` tag (a two-tier fleet's handoff wire can
+        cross any prefill→decode pair — "corrupt snapshot" without a
+        sender is undebuggable)."""
+        who = snap_origin(snap) if isinstance(snap, dict) else ""
+        if snap.get("format") != self.SNAP_FORMAT:
+            raise ValueError(
+                f"unknown KV snapshot format {snap.get('format')!r}{who}")
+        if int(snap.get("block_size", -1)) != self.block_size:
+            raise ValueError(
+                f"snapshot block_size {snap.get('block_size')} != "
+                f"allocator block_size {self.block_size}{who}")
+        if not self.prefix_cache:
+            raise ValueError(
+                "import_blocks needs the prefix cache (registered blocks "
+                "are what makes a migrated chain matchable)")
+        bs = self.block_size
+        toks = [int(t) for t in snap["tokens"]]
+        carried = list(snap["hashes"])
+        if len(toks) != len(carried) * bs:
+            raise ValueError(
+                f"snapshot carries {len(carried)} hashes but "
+                f"{len(toks)} tokens (need {len(carried) * bs}){who}")
+        # integrity gate: recompute the whole chain BEFORE touching state
+        parent = PREFIX_HASH_ROOT
+        parents: List[int] = []
+        for i, h in enumerate(carried):
+            parents.append(parent)
+            want = self.hash_fn(parent, tuple(toks[i * bs:(i + 1) * bs]))
+            if want != h:
+                raise ValueError(
+                    f"KV snapshot chain-hash mismatch at block {i}: "
+                    f"corrupt or foreign snapshot rejected{who}")
+            parent = h
+        blocks: List[int] = []
+        fresh: List[Tuple[int, int]] = []
+        try:
+            for i, h in enumerate(carried):
+                b = self._index.get(h)
+                if b is not None:
+                    _h, m_parent, m_tokens = self._meta[b]
+                    if (m_parent == parents[i]
+                            and m_tokens == tuple(toks[i * bs:(i + 1) * bs])):
+                        if self._ref[b] == 0:
+                            self._lru.pop(b, None)
+                        self._ref[b] += 1
+                        blocks.append(b)
+                        continue
+                    # hash collision with different content — the fresh
+                    # block stays private (register() first-wins), which
+                    # is safe but unmatchable; still correct pages.
+                got = self.alloc(1)
+                if got is None:
+                    raise ValueError(
+                        f"pool exhausted importing block {i} of "
+                        f"{len(carried)}{who}")
+                nb = got[0]
+                if h not in self._index:
+                    self._index[h] = nb
+                    self._meta[nb] = (h, parents[i],
+                                      tuple(toks[i * bs:(i + 1) * bs]))
+                blocks.append(nb)
+                fresh.append((i, nb))
+            self.peak_occupancy = max(self.peak_occupancy, self.occupancy())
+            return blocks, fresh
+        except Exception:
+            # roll back: never leave a registered-but-pages-unwritten
+            # block matchable, never leak references
+            for _i, nb in fresh:
+                if nb in self._meta:
+                    self._drop_cache_entry(nb)
+            for b in blocks:
+                self._ref[b] -= 1
+                if self._ref[b] == 0:
+                    if self.prefix_cache and b in self._meta:
+                        self._lru[b] = None
+                    else:
+                        self._free.append(b)
+            raise
 
 
 @dataclasses.dataclass

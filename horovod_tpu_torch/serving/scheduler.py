@@ -47,6 +47,10 @@ class Request:
     deadline_s: Optional[float] = None
     #: propagated trace context, carried on every span of the request
     trace_id: Optional[str] = None
+    #: per-request speculative lookahead: None = the engine's
+    #: ``spec_k``, 0 = speculation off for this request, k > 0 = draft
+    #: up to k tokens per decode step (clamped to the engine's)
+    spec_k: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -61,6 +65,8 @@ class Sequence:
     blocks: List[int] = dataclasses.field(default_factory=list)
     first_token_at: Optional[float] = None
     last_token_at: Optional[float] = None
+    #: device-resident padded prompt row from the staging queue
+    staged: object = None
     #: context tokens whose K/V are in the cache (prefix hits at admit
     #: plus chunks computed since)
     prefilled: int = 0
@@ -70,6 +76,12 @@ class Sequence:
     block_hashes: List[int] = dataclasses.field(default_factory=list)
     #: how many of ``blocks`` are published in the prefix index
     published: int = 0
+    #: pending speculative draft for the next decode step (empty = plain
+    #: one-token decode); joins ``generated`` only once verified
+    draft: List[int] = dataclasses.field(default_factory=list)
+    #: lifetime speculative counters (per-request accept rate)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def length(self) -> int:
@@ -85,7 +97,10 @@ class Sequence:
     def tokens_in_cache(self) -> int:
         """Tokens whose K/V are physically written: ``prefilled`` during
         prefill, ``length - 1`` during decode (the newest token's K/V
-        lands on the next step)."""
+        lands on the next step).  This lags-one invariant holds under
+        speculative decode for any number of accepted tokens: the last
+        emitted token is always the verifier's own, whose K/V the next
+        step writes."""
         if not self.in_decode:
             return self.prefilled
         return len(self.context) + max(len(self.generated) - 1, 0)
@@ -133,10 +148,17 @@ class ContinuousBatchingScheduler:
         self.evictions = 0
         self.prefix_hit_blocks = 0
         self.prefix_lookup_blocks = 0
+        #: waiting requests not yet in ``pending`` (the engine points
+        #: this at its device-staging queue; a standalone scheduler has
+        #: none)
+        self.staged_depth = lambda: 0
 
     def queue_depth(self) -> int:
-        """Requests waiting for admission."""
-        return len(self.pending)
+        """Requests waiting for admission: scheduler-pending plus
+        device-staged-but-undrained — the number behind the
+        ``hvd_tpu_serve_queue_depth`` gauge and the fleet router's
+        least-queue fallback."""
+        return len(self.pending) + self.staged_depth()
 
     def submit(self, seq: Sequence) -> None:
         self.pending.append(seq)
@@ -147,6 +169,14 @@ class ContinuousBatchingScheduler:
         _instr.SERVE_KV_OCCUPANCY.set(self.allocator.occupancy())
         _instr.SERVE_KV_CACHED.set(
             self.allocator.cached_blocks / self.allocator.capacity)
+
+    def resort_pending_by_arrival(self) -> None:
+        """Re-establish arrival order in the pending queue (the fleet
+        router calls this after re-dispatching work onto this engine).
+        Stable: equal arrivals keep their submission order."""
+        if len(self.pending) > 1:
+            self.pending = collections.deque(
+                sorted(self.pending, key=lambda s: s.req.arrival))
 
     def finish(self, seq: Sequence) -> None:
         """Release a completed sequence's blocks and batch slot."""
@@ -170,6 +200,8 @@ class ContinuousBatchingScheduler:
         victim.prefilled = 0
         victim.cached_len = 0
         victim.published = 0
+        victim.staged = None  # re-padded on the host at re-admission
+        victim.draft = []  # re-drafted (identically) after re-prefill
         self.pending.appendleft(victim)
         self.evictions += 1
         _instr.SERVE_EVICTIONS.inc()
@@ -220,18 +252,25 @@ class ContinuousBatchingScheduler:
 
     def grow_running(self) -> None:
         """Before a step: every running sequence is about to gain a
-        token — allocate tail blocks, evicting LIFO when the pool is dry."""
+        token, plus up to ``len(seq.draft)`` more when a speculative
+        draft is pending — allocate tail blocks, evicting LIFO when the
+        pool is dry.  A sequence whose draft is what needs the extra
+        blocks drops the draft before anyone is evicted."""
         for seq in list(self.running):
             if seq not in self.running:
                 continue  # evicted by an earlier iteration
             while True:
-                need = blocks_for(seq.length + 1, self.allocator.block_size)
+                need = blocks_for(seq.length + 1 + len(seq.draft),
+                                  self.allocator.block_size)
                 if need <= len(seq.blocks):
                     break
                 got = self.allocator.alloc(need - len(seq.blocks))
                 if got is not None:
                     seq.blocks.extend(got)
                     break
+                if seq.draft:
+                    seq.draft = []  # shed the speculation, not a peer
+                    continue
                 if not self._evict_one() or seq not in self.running:
                     break
         self._book()

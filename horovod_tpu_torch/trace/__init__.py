@@ -13,8 +13,11 @@ Spans bridge into an active ``torch.profiler`` capture through
 timeline and the recorder see one set of span names.  The bridge is
 resolved lazily and only when torch is already loaded.
 
-The Chrome-trace export, the ``/trace`` endpoint and the flight
-recorder are not ported yet.
+Export: :mod:`.export` renders Chrome trace-event JSON (perfetto-loadable;
+``GET /trace`` on the metrics endpoint, loopback-only) and merges
+per-rank dumps; :mod:`.flight` dumps the last N seconds of spans plus
+metric deltas as a crash bundle (the fleet router's replica loss and
+handoff chaos).
 """
 
 from __future__ import annotations
@@ -27,13 +30,14 @@ import time
 from typing import Any, List, Optional
 
 __all__ = [
-    "SITES", "add_span", "configure", "enabled", "event", "now",
-    "snapshot", "span",
+    "SITES", "add_span", "configure", "enabled", "epoch_us", "event",
+    "host", "install_from_env", "new_trace_id", "now", "rank", "snapshot",
+    "span",
 ]
 
-#: Span/event sites the port records (the serving, training, input
-#: pipeline, checkpoint, chaos and overlap subset of the JAX package's
-#: catalogue, same names).
+#: Span/event sites the port records (the serving, fleet, training,
+#: input pipeline, checkpoint, chaos and overlap subset of the JAX
+#: package's catalogue, same names).
 SITES = (
     "train.step",          # one training step (fit_epoch; global step)
     "data.wait",           # consumer wait on the prefetch queue
@@ -47,6 +51,13 @@ SITES = (
     "serve.first_decode",  # the decode step that emitted a first token
     "serve.first_token",   # first-token emission (instant; TTFT arg)
     "serve.finish",        # request completion (instant)
+    "serve.spec_verify",   # one request's speculative verify row scored
+    "serve.spec_rollback", # rejected-draft KV tail trimmed (instant)
+    "fleet.route",         # router placement decision (instant)
+    "serve.migrate",       # one request's KV/stream handoff to a survivor
+    "serve.hedge",         # hedged second dispatch issued (instant)
+    "serve.handoff",       # prefill->decode tier handoff (disagg fleet)
+    "fleet.scale",         # autoscaler applied a scale decision (instant)
     "overlap.bucket",      # one gradient bucket's collective call
     "overlap.autotune",    # one autotuner trial scored (instant)
 )
@@ -55,6 +66,11 @@ ENV_TRACE = "HVD_TPU_TRACE"
 ENV_RING = "HVD_TPU_TRACE_RING"
 
 now = time.perf_counter
+
+# wall-clock anchor: records carry perf_counter() times (monotonic); the
+# export maps them to epoch microseconds through this pair
+_WALL0 = time.time()
+_PERF0 = time.perf_counter()
 
 
 def _env_int(name: str, default: int) -> int:
@@ -69,6 +85,10 @@ def _env_int(name: str, default: int) -> int:
 
 _enabled = os.environ.get(ENV_TRACE, "1") != "0"
 _ring_cap = max(256, _env_int(ENV_RING, 16384))
+
+#: rank and host stamped on exports and bundles (install_from_env)
+_rank = 0
+_host = ""
 
 _ann_cls: Optional[type] = None
 _ann_tried = False
@@ -226,3 +246,52 @@ def configure(enabled: Optional[bool] = None,
         _enabled = bool(enabled)
     if ring is not None:
         _ring_cap = max(256, int(ring))
+
+
+def epoch_us(t: float) -> float:
+    """Map a ``now()``-clock time to epoch microseconds (export axis)."""
+    return (_WALL0 + (t - _PERF0)) * 1e6
+
+
+_id_lock = threading.Lock()
+_id_counter = 0
+
+
+def new_trace_id() -> str:
+    """A process-unique trace-context id (router -> replica -> engine ->
+    scheduler propagation)."""
+    global _id_counter
+    with _id_lock:
+        _id_counter += 1
+        n = _id_counter
+    return f"t{_rank}-{os.getpid():x}-{n:x}"
+
+
+def install_from_env(rank: int = 0, host: Optional[str] = None) -> bool:
+    """Init-time hook: resolve the env switches, stamp the rank/host the
+    export and flight bundles carry, mount the ``/trace`` control
+    endpoint and baseline the flight recorder's metric snapshot.
+    Returns whether recording is enabled."""
+    global _enabled, _ring_cap, _rank, _host
+    _enabled = os.environ.get(ENV_TRACE, "1") != "0"
+    _ring_cap = max(256, _env_int(ENV_RING, 16384))
+    _rank = int(rank)
+    if host is None:
+        import socket
+
+        host = socket.gethostname()
+    _host = host
+    from . import export as _export
+    from . import flight as _flight
+
+    _export.register_trace_endpoint()
+    _flight.note_metrics_baseline()
+    return _enabled
+
+
+def rank() -> int:
+    return _rank
+
+
+def host() -> str:
+    return _host

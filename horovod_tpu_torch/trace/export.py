@@ -1,0 +1,206 @@
+"""Chrome-trace export, the ``/trace`` endpoint, and cross-rank merge.
+
+Copied from ``horovod_tpu/trace/export.py`` (stdlib only).
+
+
+One record format (docs/TRACING.md): the ring's ``(site, t0, dur,
+args, tid)`` tuples render as Chrome trace-event JSON — ``ph="X"``
+complete spans, ``ph="i"`` instants — with ``pid`` = the rank and
+``tid`` = the recording thread, timestamps in epoch microseconds.  The
+result loads directly in ui.perfetto.dev / ``chrome://tracing``.
+
+``GET /trace`` serves the live export from the metrics exposition
+endpoint.  Like every mutating-or-verbose control surface it is
+loopback-only: remote callers get 403 unless
+``HVD_TPU_CONTROL_REMOTE=1`` opts them in.
+
+:func:`merge_ranks` is the driver-side collector: per-rank dumps land
+on one timeline by step-boundary clock alignment — every rank records
+``train.step`` spans with a ``step`` arg, so the median per-step start
+delta against the reference rank IS the clock offset (wall clocks on
+different hosts drift; step boundaries are the shared events).  Serving
+dumps with no common steps merge on raw wall time.
+"""
+
+from __future__ import annotations
+
+import json
+from statistics import median as _median
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import epoch_us, host, rank, snapshot
+
+__all__ = [
+    "chrome_trace", "merge_ranks", "register_trace_endpoint",
+    "request_decomposition", "write_dump",
+]
+
+
+def chrome_trace(since: float = 0.0,
+                 records: Optional[Sequence[tuple]] = None,
+                 pid: Optional[int] = None) -> dict:
+    """Render the live rings (or ``records``) as a Chrome trace-event
+    dict.  ``pid`` defaults to the installed rank."""
+    pid = rank() if pid is None else int(pid)
+    recs = snapshot(since) if records is None else list(records)
+    tids: Dict[str, int] = {}
+    events: List[dict] = [{
+        "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+        "args": {"name": f"rank {pid}" + (f" ({host()})" if host()
+                                          else "")},
+    }]
+    for site, t0, dur, args, tid in recs:
+        if tid not in tids:
+            tids[tid] = len(tids) + 1
+            events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                           "tid": tids[tid], "args": {"name": tid}})
+        ev = {"name": site, "cat": site.split(".", 1)[0],
+              "pid": pid, "tid": tids[tid], "ts": epoch_us(t0)}
+        if dur is None:
+            ev["ph"] = "i"
+            ev["s"] = "t"
+        else:
+            ev["ph"] = "X"
+            ev["dur"] = dur * 1e6
+        if args:
+            ev["args"] = dict(args)
+        events.append(ev)
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "metadata": {"rank": pid, "host": host(),
+                     "format": "horovod_tpu.trace/1"},
+    }
+
+
+def write_dump(path: str, since: float = 0.0) -> str:
+    """Write this rank's Chrome-trace export to ``path`` (the per-rank
+    dump :func:`merge_ranks` / tools/trace_collect.py consume)."""
+    with open(path, "w") as f:
+        json.dump(chrome_trace(since), f)
+    return path
+
+
+# -- cross-rank merge --------------------------------------------------------
+
+
+def _step_starts(trace: dict) -> Dict[int, float]:
+    """step number -> earliest ``train.step`` span start (µs)."""
+    out: Dict[int, float] = {}
+    for ev in trace.get("traceEvents", ()):
+        if ev.get("name") == "train.step" and ev.get("ph") == "X":
+            step = (ev.get("args") or {}).get("step")
+            if isinstance(step, int):
+                ts = float(ev["ts"])
+                if step not in out or ts < out[step]:
+                    out[step] = ts
+    return out
+
+
+def merge_ranks(traces: Sequence[dict]) -> dict:
+    """Merge per-rank Chrome-trace dumps onto one timeline.
+
+    The first trace is the time reference.  For every other rank, the
+    clock offset is the MEDIAN over common ``train.step`` step numbers
+    of (reference step start − this rank's step start); all of that
+    rank's timestamps shift by it, so shared step boundaries align even
+    when the hosts' wall clocks disagree.  Ranks sharing no step with
+    the reference merge unshifted (raw wall time).  ``pid`` is forced
+    to each dump's recorded rank; offsets land in
+    ``metadata.clock_offsets_us``."""
+    if not traces:
+        return {"traceEvents": [], "metadata": {"ranks": []}}
+    ref_steps = _step_starts(traces[0])
+    merged: List[dict] = []
+    offsets: Dict[str, float] = {}
+    ranks: List[int] = []
+    for i, tr in enumerate(traces):
+        pid = int((tr.get("metadata") or {}).get("rank", i))
+        ranks.append(pid)
+        off = 0.0
+        if i > 0 and ref_steps:
+            mine = _step_starts(tr)
+            common = sorted(set(ref_steps) & set(mine))
+            if common:
+                off = _median([ref_steps[s] - mine[s] for s in common])
+        offsets[str(pid)] = off
+        for ev in tr.get("traceEvents", ()):
+            ev = dict(ev)
+            ev["pid"] = pid
+            if "ts" in ev:
+                ev["ts"] = float(ev["ts"]) + off
+            merged.append(ev)
+    merged.sort(key=lambda e: e.get("ts", 0.0))
+    return {
+        "traceEvents": merged,
+        "displayTimeUnit": "ms",
+        "metadata": {"ranks": ranks, "clock_offsets_us": offsets,
+                     "format": "horovod_tpu.trace/merged1"},
+    }
+
+
+# -- TTFT decomposition ------------------------------------------------------
+
+
+def request_decomposition(records: Sequence[tuple],
+                          rid: int) -> Optional[dict]:
+    """Decompose one serving request's TTFT from its spans: ``queued``
+    (arrival→admission) + the sum of its ``prefill_chunk`` spans + its
+    ``first_decode`` span (absent when the final chunk emitted the
+    first token).  Returns None unless the request's ``serve.queued``
+    span and ``serve.first_token`` event are both present (ring
+    overwrite can lose early spans of a long run).  ``measured`` is the
+    engine-clock TTFT the first-token event carries — the number the
+    decomposition must sum to within tolerance (tools/serve_bench.py
+    asserts it per leg)."""
+    queued = chunks = first_decode = 0.0
+    have_queued = have_first = False
+    measured = 0.0
+    for site, _t0, dur, args, _tid in records:
+        if not args or args.get("rid") != rid:
+            continue
+        if site == "serve.queued" and not have_queued:
+            # first admission only: an evicted-then-readmitted sequence
+            # records a second queued span whose extent overlaps the
+            # prefill spans already counted
+            queued = dur or 0.0
+            have_queued = True
+        elif site == "serve.prefill_chunk":
+            chunks += dur or 0.0
+        elif site == "serve.first_decode":
+            first_decode = dur or 0.0
+        elif site == "serve.first_token":
+            measured = float(args.get("ttft", 0.0))
+            have_first = True
+    if not (have_queued and have_first):
+        return None
+    total = queued + chunks + first_decode
+    return {"rid": rid, "queued_s": queued, "prefill_s": chunks,
+            "first_decode_s": first_decode, "sum_s": total,
+            "measured_ttft_s": measured,
+            "err_s": abs(total - measured)}
+
+
+# -- the /trace endpoint -----------------------------------------------------
+
+_registered = False
+
+
+def _trace_handler(params: Dict[str, str]) -> Tuple[int, dict]:
+    since = 0.0
+    if params.get("since"):
+        since = float(params["since"])
+    return 200, chrome_trace(since=since)
+
+
+def register_trace_endpoint() -> None:
+    """Mount ``GET /trace`` (and its ``/control/trace`` alias) on the
+    exposition endpoint.  Idempotent; loopback-gating lives in the
+    exposition handler (the control-surface rule)."""
+    global _registered
+    if _registered:
+        return
+    from ..metrics.exposition import register_control_handler
+
+    register_control_handler("trace", _trace_handler)
+    _registered = True

@@ -45,8 +45,9 @@ def test_no_jax_imports_anywhere_in_the_port():
 
 
 def test_port_imports_and_serves_with_jax_blocked():
-    """Every module imports, the engine serves and training steps run
-    (the transformer's and the ResNet's) with jax, flax, optax and
+    """Every module imports, the engine serves (plain, speculative, and
+    through a prefill→decode fleet) and training steps run (the
+    transformer's and the ResNet's) with jax, flax, optax and
     horovod_tpu blocked outright."""
     code = (
         "import sys\n"
@@ -106,6 +107,24 @@ def test_port_imports_and_serves_with_jax_blocked():
         "assert st.step == 2 and checkpoint.latest_checkpoint(d)\n"
         "assert checkpoint.restore_checkpoint(d, st).step == 2\n"
         "hvd.shutdown()\n"
+        "from horovod_tpu_torch import fleet\n"
+        "from horovod_tpu_torch.fleet import FleetRouter, ServingReplica\n"
+        "from horovod_tpu_torch.serving import speculative\n"
+        "from horovod_tpu_torch.metrics import exposition\n"
+        "from horovod_tpu_torch.trace import export, flight\n"
+        "from horovod_tpu_torch.ops import comm_model\n"
+        "se = ServingEngine(cfg, p, serve=ServeConfig(block_size=4,\n"
+        "    decode_tiers=(1, 2), spec=True), device='cpu')\n"
+        "sr = se.submit(np.array([3, 4, 3, 4, 3, 4, 3]), max_new_tokens=6)\n"
+        "er = eng.submit(np.array([3, 4, 3, 4, 3, 4, 3]), max_new_tokens=6)\n"
+        "assert (se.run()[sr] == eng.run()[er]).all()\n"
+        "assert se.spec_steps > 0\n"
+        "mk = lambda role='both': ServingEngine(cfg, p, serve=ServeConfig(\n"
+        "    block_size=4, decode_tiers=(1, 2)), device='cpu', role=role)\n"
+        "fr = FleetRouter(mk, replicas=1, prefill_replicas=1)\n"
+        "g = fr.submit(np.arange(1, 10), 4)\n"
+        "assert len(fr.run_until_drained()[g]) == 4\n"
+        "assert fr.handoffs['warm'] == 1\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
         "    for m, v in sys.modules.items() if v is not None)\n"
@@ -160,6 +179,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ResNetTiny()
     assert ResNetTiny(device="cpu").head.kernel.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params, role="prefill")
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

@@ -187,8 +187,12 @@ def test_engine_validates_like_jax(models):
         eng.submit(np.ones((4,), np.int32), max_new_tokens=0)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(np.ones((60,), np.int32), max_new_tokens=10)
-    for field in ({"shards": 2}, {"spec": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServingEngine(tc, sd, serve=ServeConfig(**field), device="cpu")
-    assert eng.warmup() == 2  # one mixed and one decode shape
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServingEngine(tc, sd, serve=ServeConfig(shards=2), device="cpu")
+    jc, _, _, params, _ = models[None]
+    je = JaxEngine(jc, params, serve=JaxServeConfig(block_size=8,
+                                                    decode_tiers=(1, 2)))
+    # the JAX engine's tier menu: |decode| x (|chunk| + |page|) keys
+    assert eng.warmup() == je.warmup() == 12
+    assert set(eng._progs) == set(je._progs)
     assert eng.prefill_tiers == (32, 64)
