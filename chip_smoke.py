@@ -42,6 +42,19 @@ if any fails:
      cores) for fp32 and decode; every training case likewise for dq and
      dkv (``sm90`` in bf16, ``simt`` in fp32), and that a second dq and
      dkv call gives bitwise identical gradients;
+   - the training kernels at a uniform non-zero ``kv_offset`` (B9, ring
+     attention's off-diagonal blocks; ``B9_CASES``): one 2048-key block
+     of gpt_small's attention (B=8, 12 heads of 64) and of llama3_8b's
+     (B=1, 32/8 heads of 128) at offsets ±2048 and ±6144 (a global 8192
+     over four ranks) and ±1000, causal and bidirectional, a causal
+     window of 256 at −2048 and a bidirectional one at +2048, bf16 and
+     fp32: the forward (out, lse), dq and dkv against their plain
+     versions at the same offset (bf16 gradient rows against the plain
+     arithmetic with the sm90 kernels' rounding points), rows that see
+     no key exact zeros with the −1e30 sentinel, keys no query sees zero
+     in dK/dV, one launch of each at the offset in the rule's variant,
+     dq/dkv bits equal on a second call; times beside SDPA with the
+     same visibility as a boolean ``attn_mask`` and the card's bound;
    - the fused BatchNorm kernels (stats, apply, backward reduce, dx):
      all 16 distinct (M, C, ReLU, residual) shapes of ResNet-50's 53
      norm sites at batch 128, 224x224 (the main path's) in bf16, three
@@ -137,8 +150,9 @@ if any fails:
    finite and the last below the first, exactly 53 launches of each
    fused-norm kernel per step; images/s, MFU by bench.py's FLOP count,
    peak memory, then the device busy share and time by kernel class
-   over 2 profiled steps, with 5 fused-norm device kernels a site
-   (stats 1, apply 1, backward reduce 2, dx 1: 265 a step);
+   over 2 profiled steps after a traced warm-up step, with 5 fused-norm
+   device kernels a site (stats 1, apply 1, backward reduce 2, dx 1: 265
+   a step);
 11. resnet_oracle: ResNet-50 width, stage depths [1, 1, 1, 1], batch 4
    of 64x64, fp32 with TF32 off — every parameter gradient and running
    statistic on the card (the kernels) against the CPU (plain versions);
@@ -164,7 +178,26 @@ if any fails:
    deterministic cuDNN, a fresh model restored from step 12 runs the
    rest of the epoch with losses bit-identical to the uninterrupted
    run's;
-14. dp4 (four cards; not in the default run, which needs one): gpt_small
+14. ring: the flash ring's schedule at four ranks of 2048 tokens (a
+   global 8192) replayed on the card through the package's per-step
+   functions (``replay_ring_flash``), at gpt_small's and llama3_8b's
+   attention widths, causal, bidirectional and a causal window of 256
+   (the rotation cut to 2 steps), bf16 and fp32: outputs and (dq, dk,
+   dv) against one ``flash_attention`` over the whole sequence
+   (``RING_TOL``; bf16 also against the fp32 result), exact launches of
+   each kernel and variant (``ring_blocks``: every diagonal, and each
+   later block but a causal ring's future ones), the schedule's time
+   beside the single call's;
+15. ring4 (four cards; not in the default run): ``ring_flash_attention``
+   over NCCL on the ring phase's cases, every rank's output and
+   gradients bit-equal to the replay of the same ring on its own card;
+   then gpt_small at full width and depth with
+   ``attention_impl="ring_flash"``, B=8 x a global 8192 cut into
+   2048-token shards, through ``init()``, ``replicate_state`` and
+   ``data_parallel_train_step``, 10 steps: losses equal on every rank,
+   finite and falling, each rank's launches a step those of its place
+   on the ring; tokens/s, step time, peak memory;
+16. dp4 (four cards; not in the default run, which needs one): gpt_small
    data-parallel training over NCCL, four ranks each on its own seeded
    B=8 x S=2048 batch, through the plain, overlapped and ZeRO steps of
    each package root given by ``--roots`` in turn (another checkout's
@@ -174,8 +207,8 @@ if any fails:
    rank-ordered allreduce against NCCL's own, in turns.
 
 Each main path (serving, spec, disagg, training, overlap, zero, remat,
-resnet, pipeline) is driven with the kernels' launch counts set to 0 just
-before it and read just after.  The card's
+resnet, pipeline, ring, ring4) is driven with the kernels' launch counts
+set to 0 just before it and read just after.  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -190,13 +223,16 @@ the sm90 forward launches summed over the serving, spec, disagg,
 training, overlap, zero and remat runs, the paged decode's over the
 serving, spec and disagg runs, dq and dkv over the training, overlap,
 zero and remat runs, the fused-norm launches over the resnet and
-pipeline runs;
+pipeline runs; the six ``*_kv_offset`` entries (the forward, dq and
+dkv at a non-zero offset, each variant) at the ring's own past-block
+call at gpt_small's shard, their launches the ring phase's (and
+ring4's);
 null where ``--phases`` left that phase out);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 ``--phases`` runs a subset (e.g. ``--phases kernels,training``; overlap
 and zero run training first, whose losses they are held against); the
-default runs all but dp4.
+default runs all but dp4 and ring4.
 """
 
 from __future__ import annotations
@@ -683,16 +719,18 @@ def _errors(out, ref):
             max(1.0, top))
 
 
-def _train_bounds(b, s, h, h_kv, d, causal, window, el, dtype):
+def _train_bounds(b, s, h, h_kv, d, causal, window, el, dtype,
+                  kv_offset=0):
     """Least time on the card for each kernel: max(bytes / HBM rate,
     FLOPs / peak).  Triples = visible (head, query, key) entries of this
-    run's mask.  FLOPs per triple: 4·D forward (QKᵀ, PV), 6·D dq (QKᵀ,
-    dO·Vᵀ, dS·K), 8·D dkv (QKᵀ, Pᵀ·dO, dO·Vᵀ, dSᵀ·Q).  Bytes: each input
-    read once and each output written once (q-side (B,S,H,D) tensors,
-    kv-side (B,S,H_kv,D) ones, fp32 (B,H,S) statistics)."""
+    run's mask (at ``kv_offset``).  FLOPs per triple: 4·D forward
+    (QKᵀ, PV), 6·D dq (QKᵀ, dO·Vᵀ, dS·K), 8·D dkv (QKᵀ, Pᵀ·dO, dO·Vᵀ,
+    dSᵀ·Q).  Bytes: each input read once and each output written once
+    (q-side (B,S,H,D) tensors, kv-side (B,S,H_kv,D) ones, fp32 (B,H,S)
+    statistics)."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    mask = fa._self_mask(s, causal, window, "cuda")
+    mask = fa._self_mask(s, causal, window, "cuda", kv_offset)
     triples = int(mask.sum()) * b * h
     qs, kvs, st = b * s * h * d * el, b * s * h_kv * d * el, b * h * s * 4
     peak = PEAK_FLOPS[dtype]
@@ -816,6 +854,249 @@ def phase_train_kernels():
     if bad:
         raise AssertionError(
             f"training kernels disagree with their plain versions: {bad}")
+    return recs
+
+
+# -- phase 3b': the training kernels at a uniform kv_offset (B9) --------------
+
+# (name, B, S, H, H_kv, D, causal, window, kv_offset, dtype): one K/V block
+# of S keys whose first key sits kv_offset positions after the first
+# query — ring attention's blocks at a 2048-token shard (a global 8192
+# over four ranks: offsets ±2048, ±6144).  The first of each width is the
+# ring's own off-diagonal call (a past block, bidirectional with no
+# window: every key visible), the main path's shape; "future" blocks see
+# no key (zeros, the −1e30 sentinel), windows and the ±1000 offsets
+# leave some rows or keys with nothing to see and cut the diagonal
+# through the tiles.
+B9_CASES = [
+    ("gpt_small_past", 8, 2048, 12, 12, 64, False, None, -2048, "bfloat16"),
+    ("gpt_small_past", 8, 2048, 12, 12, 64, False, None, -2048, "float32"),
+    ("gpt_small_causal", 8, 2048, 12, 12, 64, True, None, -2048, "bfloat16"),
+    ("gpt_small_causal", 8, 2048, 12, 12, 64, True, None, -6144, "bfloat16"),
+    ("gpt_small_causal_future", 8, 2048, 12, 12, 64, True, None, 2048,
+     "bfloat16"),
+    ("gpt_small_causal_future", 8, 2048, 12, 12, 64, True, None, 6144,
+     "float32"),
+    ("gpt_small_bidirectional", 8, 2048, 12, 12, 64, False, None, 2048,
+     "bfloat16"),
+    ("gpt_small_causal_window256", 8, 2048, 12, 12, 64, True, 256, -2048,
+     "bfloat16"),
+    ("gpt_small_causal_window256", 8, 2048, 12, 12, 64, True, 256, -2048,
+     "float32"),
+    ("gpt_small_bidirectional_window256", 8, 2048, 12, 12, 64, False, 256,
+     2048, "bfloat16"),
+    ("gpt_small_bidirectional_window256", 8, 2048, 12, 12, 64, False, 256,
+     2048, "float32"),
+    ("gpt_small_causal_partial", 8, 2048, 12, 12, 64, True, None, -1000,
+     "bfloat16"),
+    ("gpt_small_causal_partial", 8, 2048, 12, 12, 64, True, None, 1000,
+     "bfloat16"),
+    ("gpt_small_causal_partial", 8, 2048, 12, 12, 64, True, None, 1000,
+     "float32"),
+    ("llama3_8b_past", 1, 2048, 32, 8, 128, False, None, -2048, "bfloat16"),
+    ("llama3_8b_past", 1, 2048, 32, 8, 128, False, None, -2048, "float32"),
+    ("llama3_8b_causal", 1, 2048, 32, 8, 128, True, None, -6144, "bfloat16"),
+    ("llama3_8b_causal_future", 1, 2048, 32, 8, 128, True, None, 6144,
+     "bfloat16"),
+    ("llama3_8b_causal_window256", 1, 2048, 32, 8, 128, True, 256, -2048,
+     "bfloat16"),
+    ("llama3_8b_bidirectional_window256", 1, 2048, 32, 8, 128, False, 256,
+     2048, "bfloat16"),
+    ("llama3_8b_causal_partial", 1, 2048, 32, 8, 128, True, None, -1000,
+     "bfloat16"),
+    ("llama3_8b_causal_partial", 1, 2048, 32, 8, 128, True, None, 1000,
+     "float32"),
+]
+
+
+def _sm90_rounded_bwd(q, k, v, do, lse, delta, causal, window, kv_offset):
+    """(dQ, dK, dV) by the plain versions' arithmetic with the sm90
+    backward's own rounding points (``csrc/flash_bwd_sm90.cu``): dS
+    rounded to bf16 before dS·K and dSᵀ·Q, P before Pᵀ·dO, and the dkv
+    kernel's dS formed from the rounded P at D = 128.  A row of few
+    terms (a key seen by a handful of queries) can cancel, and rounding
+    each term by 2^-9 then moves it by more than 1e-2 of its own largest
+    value; against this version only the fp32 sums' order and the
+    output's rounding differ."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = q.shape
+    h_kv = k.shape[2]
+    g = h // h_kv
+    rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    mask = fa._self_mask(s, causal, window, q.device, kv_offset)
+    p = torch.where(mask, torch.exp(fa._grouped_logits(q, k) - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    dp = fa._grouped_dots(do, v) - delta[..., None]
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", rnd(p * dp).reshape(
+        b, h_kv, g, s, s), k.float()).reshape(b, s, h, d)
+
+    def per_kv(x, y):
+        return torch.einsum("bhqk,bqhd->bkhd", x, y.float()).reshape(
+            b, s, h_kv, g, d).sum(dim=3)
+
+    dk = per_kv(rnd((rnd(p) if d == 128 else p) * dp), q)
+    dv = per_kv(rnd(p), do)
+    scale = 1.0 / math.sqrt(d)
+    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def _offset_counts():
+    """Launches at a non-zero uniform offset of (fwd, dq, dkv), each's
+    (sm90, simt)."""
+    return tuple(n for fn in _train_wrappers()
+                 for n in (fn.offset_sm90_launches, fn.offset_simt_launches))
+
+
+def run_b9_case(name, b, s, h, h_kv, d, causal, window, kv_offset,
+                dtype_name):
+    """One block at ``kv_offset`` through the forward, dq and dkv
+    kernels against their plain versions at the same offset: errors as
+    the training cases' (live rows and keys; bf16 gradient rows against
+    the plain arithmetic with the sm90 kernels' rounding points,
+    ``_sm90_rounded_bwd``, their absolute error against the plain
+    versions), rows that see no key
+    exactly zero with the −1e30 lse sentinel (dq too), keys no query
+    sees exactly zero in dK and dV, the variant of each launch counted
+    at a non-zero offset, the same dq/dkv bits on a second call; kernel,
+    plain and SDPA (a boolean ``attn_mask`` of the same visibility;
+    timed only) times and the card's bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    mk = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device="cuda").to(dtype)
+    q, k, v, do = mk(b, s, h, d), mk(b, s, h_kv, d), mk(b, s, h_kv, d), \
+        mk(b, s, h, d)
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    mask = fa._self_mask(s, causal, window, "cuda", kv_offset)
+    live_q, live_k = mask.any(dim=1), mask.any(dim=0)
+    before = _offset_counts()
+    out, lse = fa.flash_block_forward(q, k, v, causal, window, kv_offset)
+    torch.cuda.synchronize()
+    # the backward's lse: a finite one for every row, as the ring's final
+    # (merged) lse is — the block's own where it sees a key, else the
+    # row's lse over the diagonal block (offset 0)
+    lse_b = torch.where(lse > -1e29, lse,
+                        fa.flash_forward(q, k, v, True, window)[1])
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_k = lambda: fa.flash_bwd_dq_cuda(  # noqa: E731
+        q, k, v, do, lse_b, delta, **kw)
+    dkv_k = lambda: fa.flash_bwd_dkv_cuda(  # noqa: E731
+        q, k, v, do, lse_b, delta, **kw)
+    dq = dq_k()
+    dk, dv = dkv_k()
+    torch.cuda.synchronize()
+    want = "sm90" if dtype == torch.bfloat16 else "simt"
+    delta_counts = [a - c for a, c in zip(_offset_counts(), before)]
+    # (fwd, dq, dkv) x (sm90, simt): one offset launch each, in the variant
+    # the rule gives
+    want_counts = [int(want == "sm90"), int(want == "simt")] * 3
+    again = (dq_k(), *dkv_k())
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(x, y)
+                        for x, y in zip((dq, dk, dv), again))
+    del again
+    plain_f = lambda: fa.flash_attention_reference(  # noqa: E731
+        q, k, v, causal, window, kv_offset)
+    plain_dq = lambda: fa.flash_bwd_dq_reference(  # noqa: E731
+        q, k, v, do, lse_b, delta, causal, window, kv_offset)
+    plain_dkv = lambda: fa.flash_bwd_dkv_reference(  # noqa: E731
+        q, k, v, do, lse_b, delta, causal, window, kv_offset)
+    errs = {}
+    r_out, r_lse = plain_f()
+    errs["o"] = _errors(out, r_out)
+    lq = live_q.nonzero()[:, 0]
+    errs["lse"] = _errors(lse[..., lq, None], r_lse[..., lq, None]) \
+        if lq.numel() else (0.0, 0.0, 1.0)
+    del r_out, r_lse
+    errs["dq"] = _errors(dq, plain_dq())
+    r_dk, r_dv = plain_dkv()
+    errs["dk"], errs["dv"] = _errors(dk, r_dk), _errors(dv, r_dv)
+    del r_dk, r_dv
+    # bf16 gradient rows: the per-row check against the sm90 kernels'
+    # own rounding points (the absolute one stays against the plain
+    # version above)
+    row_errs = {key: errs[key][1] for key in errs}
+    if want == "sm90":
+        rounded = _sm90_rounded_bwd(q, k, v, do, lse_b, delta, causal,
+                                    window, kv_offset)
+        for key, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), rounded):
+            row_errs[key] = _errors(got, ref)[1]
+        del rounded
+    dead_q, dead_k = ~live_q, ~live_k
+    sentinel = float(np.float32(-1e30))
+    exact = dict(
+        out=bool((out[:, dead_q] == 0).all()),
+        lse=bool((lse[..., dead_q] == sentinel).all()),
+        dq=bool((dq[:, dead_q] == 0).all()),
+        dkv=bool((dk[:, dead_k] == 0).all() and (dv[:, dead_k] == 0).all()))
+    ok = (delta_counts == want_counts and deterministic and all(exact.values())
+          and all(math.isfinite(a) and a <= TOL[dtype_name] * top
+                  for a, _r, top in errs.values())
+          and all(math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
+                  for r in row_errs.values()))
+    bounds, triples = _train_bounds(b, s, h, h_kv, d, causal, window,
+                                    q.element_size(), dtype_name, kv_offset)
+    rec = dict(case=name, shape=[b, s, h, h_kv, d], causal=causal,
+               window=window, kv_offset=kv_offset, dtype=dtype_name, ok=ok,
+               variant=want, offset_launches=delta_counts,
+               deterministic=deterministic, rows_without_key=int(
+                   dead_q.sum()), keys_unseen=int(dead_k.sum()),
+               exact_zeros_and_sentinel=exact, triples=triples,
+               tol=TOL[dtype_name], row_tol=TRAIN_ROW_TOL[dtype_name],
+               errors={key: dict(abs=a, row=r, abs_bound=TOL[dtype_name]
+                                 * top, row_checked=row_errs[key])
+                       for key, (a, r, top) in errs.items()})
+    fwd = lambda: fa.flash_block_forward(  # noqa: E731
+        q, k, v, causal, window, kv_offset)
+    for key, kern, plain in (("fwd", fwd, plain_f), ("dq", dq_k, plain_dq),
+                             ("dkv", dkv_k, plain_dkv)):
+        rec[key] = dict(kernel_ms=cuda_ms(kern, reps=5),
+                        plain_ms=cuda_ms(plain, reps=2, warmup=1),
+                        bound_ms=bounds[key][0], bound_by=bounds[key][1])
+        torch.cuda.empty_cache()
+    # SDPA with the same visibility as a boolean mask, timed only (never
+    # used by the port); rows that see nothing give NaN there, which no
+    # one reads
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    try:
+        rec["fwd"]["library_ms"] = cuda_ms(sdpa, reps=5)
+        o_sd = sdpa()
+        g_sd = do.transpose(1, 2).contiguous()
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            o_sd, (qt, kt, vt), g_sd, retain_graph=True)
+        rec["sdpa_bwd_ms"] = cuda_ms(bwd, reps=5)
+        del o_sd
+    except Exception as e:  # an SDPA without enable_gqa: no yardstick
+        log(f"  {name}: library call unavailable ({e!r})")
+        rec["fwd"]["library_ms"] = rec["sdpa_bwd_ms"] = None
+    rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = rec["sdpa_bwd_ms"]
+    log("  " + json.dumps(rec))
+    return rec
+
+
+def phase_b9_kernels():
+    import torch
+
+    recs = []
+    for case in B9_CASES:
+        recs.append(run_b9_case(*case))
+        torch.cuda.empty_cache()
+    bad = [f"{r['case']}@{r['kv_offset']}/{r['dtype']}" for r in recs
+           if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"kernels at a kv_offset disagree with their plain versions: "
+            f"{bad}")
     return recs
 
 
@@ -2033,8 +2314,9 @@ def _train_wrappers():
 
 
 def _reset_train_counts():
-    for fn in _train_wrappers():
-        fn.launches = fn.sm90_launches = fn.simt_launches = 0
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    fa._zero_counts(*_train_wrappers())
 
 
 TRAIN_COUNTS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -2846,11 +3128,14 @@ def _bn_counts():
     return tuple(w.launches for w in _bn_wrappers())
 
 
+#: the fused-norm device kernels' names (csrc/fused_norm.cu)
+BN_KERNEL_NAMES = ("bn_stats", "bn_reduce_partials", "bn_finalize",
+                   "bn_apply_kernel", "bn_bwd_partial", "bn_dx_kernel")
+
+
 def _resnet_kernel_class(name):
     n = name.lower()
-    if any(s in n for s in ("bn_stats", "bn_reduce_partials",
-                            "bn_finalize", "bn_apply_kernel",
-                            "bn_bwd_partial", "bn_dx_kernel")):
+    if any(s in n for s in BN_KERNEL_NAMES):
         return "bn_kernels"
     if "nccl" in n:
         return "nccl"
@@ -2943,26 +3228,41 @@ def phase_resnet():
 def profile_resnet(step, state, images, labels):
     """Device busy share, device time and kernels by kernel class
     (convolutions, the fused-norm kernels, other elementwise, SGD) over
-    PROFILE_STEPS more steps under torch.profiler; the fused-norm
-    kernels must be 5 a site."""
+    PROFILE_STEPS more steps under torch.profiler, after one warm-up
+    step traced and discarded (the profiler's documented warm-up: two
+    default runs on an H100 saw the window two fused-norm kernels short
+    while the wrappers counted every launch); the fused-norm kernels must
+    be 5 a site, each kind's count in the record."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            state, loss = step(state, images, labels)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=PROFILE_STEPS,
+                                   repeat=1)) as prof:
+        state, loss = step(state, images, labels)
         torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            state, loss = step(state, images, labels)
+            if i == PROFILE_STEPS - 1:
+                torch.cuda.synchronize()  # the window closes at step()
+            prof.step()
         wall = time.perf_counter() - t0
     rec = _device_breakdown(prof, wall, PROFILE_STEPS,
                             classify=_resnet_kernel_class)
+    rec["bn_kernels_by_name"] = dict(collections.Counter(
+        s for e in prof.events() if e.device_type == DeviceType.CUDA
+        for s in BN_KERNEL_NAMES if s in e.name.lower()))
     # a site runs stats 1, apply 1, backward reduce 2 and dx 1 kernels
     bn = rec["kernels_per_step_by_class"].get("bn_kernels")
     assert bn is None or bn == 5 * RESNET_SITES, (
-        f"{bn} fused-norm device kernels a step, not {5 * RESNET_SITES}")
+        f"{bn} fused-norm device kernels a step, not {5 * RESNET_SITES}: "
+        f"{rec['bn_kernels_by_name']}")
     host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
                    for a in prof.key_averages()
                    if a.device_type == DeviceType.CPU),
@@ -3301,9 +3601,352 @@ def phase_dp4(roots, device="cuda", preset="gpt_small", b=TRAIN_B,
     return runs
 
 
+# -- phase 15: the ring schedule on one card (B9 on its main path) ------------
+
+RING_N, RING_S = 4, 2048  # four ranks of 2048 tokens: a global 8192
+# (name, B, H, H_kv, D): gpt_small's attention (B=8 as its training
+# batch) and llama3_8b's (GQA 32/8 at D=128)
+RING_WIDTHS = (("gpt_small", 8, 12, 12, 64), ("llama3_8b", 1, 32, 8, 128))
+RING_MASKS = (("causal", True, None), ("bidirectional", False, None),
+              ("causal_window256", True, 256))
+# the n-step schedule against one flash_attention over the whole
+# sequence: the absolute error within TOL x max(1, largest |output|) in
+# bf16 and 1e-4 x that in fp32; fp32 rows within TRAIN_ROW_TOL.  A bf16
+# ring rounds each of its blocks' outputs and gradients to bf16 before
+# it sums them in fp32 (as the reference's does), where one call rounds
+# once, so a row whose blocks cancel can move by more than 1e-2 of
+# itself (1.4e-2 on an H100): bf16 rows are instead held, as
+# FlashAttention's own tests hold a kernel, against the fp32 result (one
+# fp32 flash_attention over the same bf16-valued inputs): the ring's largest
+# error there within the single bf16 call's times the ring's steps (the
+# bf16 results it composes; a lost or misplaced block is off by O(1)).
+RING_TOL = {"bfloat16": TOL["bfloat16"], "float32": 1e-4}
+
+
+def ring_blocks(n, s, causal, window):
+    """(diagonal, off-diagonal) blocks the flash ring of n ranks runs
+    through the kernels, forward and backward alike: every rank's
+    diagonal, and each later step's block unless a causal ring skips it
+    (a future block, ``src > idx``)."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_window_steps
+
+    steps = ring_window_steps(n, s, causal=causal, window=window)
+    off = sum(1 for idx in range(n) for t in range(1, steps)
+              if not (causal and (idx - t) % n > idx))
+    return n, off
+
+
+def _ring_inputs(b, s, h, h_kv, d, dtype, device="cuda", seed=SEED):
+    """The global (q, k, v, dO) of one ring case, from a seeded generator
+    on ``device`` (the same on every card)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d),
+                               (b, s, h, d)))
+
+
+def _shards(t, n):
+    s = t.shape[1] // n
+    return [t[:, i * s:(i + 1) * s].contiguous() for i in range(n)]
+
+
+def run_ring_case(width, b, h, h_kv, d, mask_name, causal, window,
+                  dtype_name):
+    """The flash ring of RING_N ranks replayed on this card through the
+    package's per-step functions (``replay_ring_flash``: the ring's own
+    order, each rank's bits), against one ``flash_attention`` over the
+    whole sequence (RING_TOL; bf16 also against the fp32 result):
+    outputs and (dq, dk, dv); the exact launches of each kernel and
+    variant (``ring_blocks``); the schedule's time beside the single
+    call's (forward + backward each)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.ring_attention import (
+        replay_ring_flash, ring_window_steps)
+
+    dtype = getattr(torch, dtype_name)
+    n = RING_N
+    q, k, v, do = _ring_inputs(b, n * RING_S, h, h_kv, d, dtype)
+    qs, ks, vs, gs = (_shards(t, n) for t in (q, k, v, do))
+    torch.cuda.synchronize()
+    _reset_train_counts()
+    outs, dqs, dks, dvs = replay_ring_flash(qs, ks, vs, gs, causal, window)
+    torch.cuda.synchronize()
+    counts = dict(zip(TRAIN_COUNTS, _train_counts()))
+    offsets = _offset_counts()
+    diag, off = ring_blocks(n, RING_S, causal, window)
+    steps = ring_window_steps(n, RING_S, causal=causal, window=window)
+    want = "sm90" if dtype == torch.bfloat16 else "simt"
+    other = "simt" if want == "sm90" else "sm90"
+    want_counts = {}
+    for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        want_counts.update({kern: diag + off, f"{kern}_{want}": diag + off,
+                            f"{kern}_{other}": 0})
+    want_offsets = tuple(off if v == want else 0
+                         for _ in range(3) for v in ("sm90", "simt"))
+    counts_ok = counts == want_counts and offsets == want_offsets
+    qf, kf, vf = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    single = lambda: torch.autograd.grad(  # noqa: E731
+        fa.flash_attention(qf, kf, vf, causal, window), (qf, kf, vf), do)
+    of = fa.flash_attention(qf, kf, vf, causal, window)
+    gq, gk, gv = torch.autograd.grad(of, (qf, kf, vf), do)
+    ring = {key: torch.cat(got, dim=1) for key, got in (
+        ("o", outs), ("dq", dqs), ("dk", dks), ("dv", dvs))}
+    single_out = dict(o=of.detach(), dq=gq, dk=gk, dv=gv)
+    errs = {key: _errors(ring[key], single_out[key]) for key in ring}
+    ok = counts_ok and all(math.isfinite(a) and a <= RING_TOL[dtype_name]
+                           * top for a, _r, top in errs.values())
+    vs_fp32 = None
+    if dtype == torch.bfloat16:
+        # both bf16 results against the fp32 one
+        q32, k32, v32 = (x.detach().float().requires_grad_()
+                         for x in (q, k, v))
+        o32 = fa.flash_attention(q32, k32, v32, causal, window)
+        exact = dict(zip(("o", "dq", "dk", "dv"), (o32.detach(), *(
+            torch.autograd.grad(o32, (q32, k32, v32), do.float())))))
+        del o32, q32, k32, v32
+        vs_fp32 = {key: dict(
+            ring=float((ring[key].float() - exact[key]).abs().max()),
+            single=float((single_out[key].float() - exact[key]).abs().max()))
+            for key in ring}
+        del exact
+        ok = ok and all(e["ring"] <= steps * e["single"]
+                        for e in vs_fp32.values())
+    else:
+        ok = ok and all(math.isfinite(r) and r <= TRAIN_ROW_TOL[dtype_name]
+                        for _a, r, _top in errs.values())
+    del of, gq, gk, gv, single_out
+    rec = dict(case=f"{width}_{mask_name}", n=n, s_local=RING_S,
+               shape=[b, n * RING_S, h, h_kv, d], dtype=dtype_name, ok=ok,
+               blocks=dict(diagonal=diag, off_diagonal=off), variant=want,
+               launches=counts, offset_launches=dict(zip(
+                   ("fwd_sm90", "fwd_simt", "dq_sm90", "dq_simt",
+                    "dkv_sm90", "dkv_simt"), offsets)),
+               tol=RING_TOL[dtype_name], row_tol=TRAIN_ROW_TOL[dtype_name],
+               errors={key: dict(abs=a, row=r, abs_bound=RING_TOL[dtype_name]
+                                 * top) for key, (a, r, top) in errs.items()},
+               max_abs_err_vs_fp32=vs_fp32,
+               schedule_ms=cuda_ms(lambda: replay_ring_flash(
+                   qs, ks, vs, gs, causal, window), reps=3, warmup=1),
+               single_ms=cuda_ms(single, reps=3, warmup=1))
+    log("  " + json.dumps(rec))
+    return rec
+
+
+def phase_ring():
+    """The flash ring's schedule at RING_N ranks of RING_S tokens in one
+    process (``run_ring_case``): both attention widths, causal,
+    bidirectional and a causal window of 256, bf16 and fp32.  The
+    launches are counted from 0 around each replay: the offset form's
+    path in the one-card run."""
+    import torch
+
+    recs = []
+    for width, b, h, h_kv, d in RING_WIDTHS:
+        for mask_name, causal, window in RING_MASKS:
+            for dtype_name in ("bfloat16", "float32"):
+                recs.append(run_ring_case(width, b, h, h_kv, d, mask_name,
+                                          causal, window, dtype_name))
+                torch.cuda.empty_cache()
+    bad = [f"{r['case']}/{r['dtype']}" for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ring schedule disagrees with one flash "
+                             f"attention (or launched otherwise): {bad}")
+    return recs
+
+
+#: one rank of the ring4 phase (four cards over NCCL; gloo on the CPU):
+#: ``ring_flash_attention`` on the ring phase's cases, each rank's output
+#: and gradients against the replay of the same ring on its own card;
+#: then gpt_small with ``attention_impl="ring_flash"`` through init(),
+#: replicate_state and data_parallel_train_step, each rank on its shard
+#: of one seeded batch.  Writes JSON to OUT.
+RING4_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import training
+from horovod_tpu_torch.models import Transformer, init_params
+from horovod_tpu_torch.models import transformer as tm
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel.ring_attention import (
+    replay_ring_flash, ring_flash_attention)
+import chip_smoke as cs
+
+(rank, world, store, out, device, preset, b, s_local, steps, seed,
+ attn) = sys.argv[1:12]
+rank, world, b, s_local, steps, seed = map(int, (rank, world, b, s_local,
+                                                 steps, seed))
+cpu = device == "cpu"
+if cpu:
+    torch.set_num_threads(1)
+hvd.init(device="cpu" if cpu else None, rank=rank, size=world,
+         init_method="file://" + store)
+dev = hvd.device()
+wrappers = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+
+
+def sync():
+    if not cpu:
+        torch.cuda.synchronize()
+
+
+def counts():
+    return [n for fn in wrappers for n in (
+        fn.launches, fn.offset_sm90_launches, fn.offset_simt_launches)]
+
+
+res = {"attention": []}
+widths = cs.RING_WIDTHS if attn == "full" else (("tiny", 2, 4, 2, 16),)
+for width, bb, h, h_kv, d in widths:
+    for mask_name, causal, window in cs.RING_MASKS:
+        for dtype in (torch.bfloat16, torch.float32) if not cpu else \
+                (torch.float32,):
+            win = window if attn == "full" or window is None else 3
+            q, k, v, do = cs._ring_inputs(bb, world * s_local, h, h_kv, d,
+                                          dtype, device=dev, seed=seed)
+            qs, ks, vs, gs = (cs._shards(t, world) for t in (q, k, v, do))
+            qq, kk, vv = (x[rank].clone().requires_grad_()
+                          for x in (qs, ks, vs))
+            o = ring_flash_attention(qq, kk, vv, causal=causal, window=win)
+            o.backward(gs[rank])
+            rep = replay_ring_flash(qs, ks, vs, gs, causal, win)
+            got = (o, qq.grad, kk.grad, vv.grad)
+            res["attention"].append(dict(
+                case=f"{width}_{mask_name}", dtype=str(dtype).split(".")[-1],
+                bit_equal=[bool(torch.equal(x, r[rank]))
+                           for x, r in zip(got, rep)]))
+            del q, k, v, do, qs, ks, vs, gs, rep, got, o
+            if not cpu:
+                torch.cuda.empty_cache()
+
+cfg = getattr(tm, preset)(
+    dtype=torch.float32 if cpu else torch.bfloat16,
+    attention_impl="ring_flash", seq_axis_name="seq")
+model = Transformer(cfg, params=init_params(
+    cfg, torch.Generator(dev.type).manual_seed(seed), device=dev,
+    param_dtype=torch.float32))
+n_params = sum(p.numel() for p in model.parameters())
+toks = torch.as_tensor(np.random.RandomState(seed).randint(
+    0, cfg.vocab_size, size=(b, world * s_local + 1)), dtype=torch.long,
+    device=dev)
+cut = slice(rank * s_local, (rank + 1) * s_local)
+x, y = toks[:, :-1][:, cut], toks[:, 1:][:, cut]
+opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                        eps=1e-8, weight_decay=1e-4)
+state = training.replicate_state(training.create_train_state(model, opt))
+step = training.data_parallel_train_step(model, opt)
+if not cpu:
+    torch.cuda.reset_peak_memory_stats()
+fa._zero_counts(*wrappers)
+losses, times, per_step = [], [], []
+for _ in range(steps):
+    before = counts()
+    sync()
+    t0 = time.perf_counter()
+    state, loss = step(state, x, y)
+    sync()
+    times.append(time.perf_counter() - t0)
+    losses.append(float(loss))
+    per_step.append([a - c for a, c in zip(counts(), before)])
+res["train"] = dict(
+    losses=losses, step_s=times, per_step=per_step, params=n_params,
+    layers=cfg.num_layers, peak_mem_gb=None if cpu else
+    torch.cuda.max_memory_allocated() / 1e9)
+with open(out, "w") as f:
+    json.dump(res, f)
+hvd.shutdown()
+"""
+
+
+def phase_ring4(device="cuda", preset="gpt_small", b=TRAIN_B, s_local=RING_S,
+                steps=TRAIN_STEPS, attn="full", timeout=900):
+    """Ring attention across four cards over NCCL (RING4_WORKER): every
+    rank's ``ring_flash_attention`` output and gradients bit-equal to the
+    replay of the same ring (``run_ring_case``'s cases); then gpt_small
+    at full width and depth, B=8 x a global 8192 cut into four 2048-token
+    shards, bf16 over fp32 masters, AdamW, TRAIN_STEPS steps on one
+    seeded batch with ``attention_impl="ring_flash"``: every loss equal
+    on every rank, finite, the last below the first; each rank's B9 and
+    diagonal launches a step exactly those of its place on the ring;
+    tokens/s of the global batch, step time, peak memory."""
+    import tempfile
+
+    world = 4
+    if device == "cuda":
+        import torch
+
+        assert torch.cuda.device_count() >= world, (
+            f"ring4 needs {world} cards, found {torch.cuda.device_count()}")
+        from horovod_tpu_torch.ops import _build
+
+        _build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RING4_WORKER, str(r), str(world),
+             os.path.join(tmp, "store"), outs[r], device, preset, str(b),
+             str(s_local), str(steps), str(SEED), attn], cwd=HERE, env=env)
+            for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert rcs == [0] * world, f"ring4 ranks exited {rcs}"
+        recs = []
+        for o in outs:
+            with open(o) as f:
+                recs.append(json.load(f))
+    unequal = [(r, a["case"], a["dtype"]) for r, rec in enumerate(recs)
+               for a in rec["attention"] if not all(a["bit_equal"])]
+    assert not unequal, f"ring ranks differ from the replay: {unequal}"
+    losses = recs[0]["train"]["losses"]
+    for rec in recs[1:]:
+        assert rec["train"]["losses"] == losses, "ranks disagree on losses"
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    n_layers = recs[0]["train"]["layers"]
+    for idx, rec in enumerate(recs):
+        # per (fwd, dq, dkv): launches, offset sm90, offset simt; rank idx
+        # runs its diagonal and idx past blocks a layer (causal)
+        want = ([n_layers * (idx + 1), n_layers * idx, 0] if device == "cuda"
+                else [0, 0, 0]) * 3
+        assert all(c == want for c in rec["train"]["per_step"]), (
+            f"rank {idx} launches a step {rec['train']['per_step'][0]} != "
+            f"{want}")
+    mean, median = _steady(recs[0]["train"]["step_s"])
+    slowest = max(_steady(r["train"]["step_s"])[0] for r in recs)
+    tokens = b * world * s_local
+    rec = dict(world=world, batch=[b, world * s_local], s_local=s_local,
+               params=recs[0]["train"]["params"], losses=losses,
+               attention_cases=len(recs[0]["attention"]),
+               step_ms_mean=mean * 1e3, step_ms_median=median * 1e3,
+               slowest_rank_ms_mean=slowest * 1e3,
+               tokens_per_s=tokens / mean,
+               peak_mem_gb=[r["train"]["peak_mem_gb"] for r in recs],
+               launches_per_step=[r["train"]["per_step"][0] for r in recs],
+               offset_launches={k: sum(r["train"]["per_step"][i][j]
+                                       for r in recs
+                                       for i in range(len(r["train"]
+                                                          ["per_step"])))
+                                for k, j in (("fwd_sm90", 1), ("fwd_simt", 2),
+                                             ("dq_sm90", 4), ("dq_simt", 5),
+                                             ("dkv_sm90", 7),
+                                             ("dkv_simt", 8))})
+    log("  ring4: " + json.dumps(rec))
+    return rec
+
+
 PHASES = ("kernels", "serving", "oracle", "spec", "disagg", "training",
           "overlap", "zero", "training_oracle", "remat", "resnet",
-          "resnet_oracle", "pipeline")
+          "resnet_oracle", "pipeline", "ring")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -3445,6 +4088,50 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle,
     return entries
 
 
+OFFSET_ENTRIES = (
+    ("flash_fwd_sm90_kv_offset", "fwd", "sm90", "flash_fwd_sm90.cu", 104),
+    ("flash_fwd_simt_kv_offset", "fwd", "simt", "flash_fwd.cu", 104),
+    ("flash_bwd_dq_sm90_kv_offset", "dq", "sm90", "flash_bwd_sm90.cu", 301),
+    ("flash_bwd_dkv_sm90_kv_offset", "dkv", "sm90", "flash_bwd_sm90.cu",
+     342),
+    ("flash_bwd_dq_simt_kv_offset", "dq", "simt", "flash_bwd.cu", 301),
+    ("flash_bwd_dkv_simt_kv_offset", "dkv", "simt", "flash_bwd.cu", 342))
+_OUTPUTS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+
+
+def offset_entries(b9, ring, ring4):
+    """The ``kernels`` line's entries for the kernels at a non-zero
+    uniform kv_offset (B9): ``launches`` those of the ring phase's runs
+    (and ring4's when it ran), the other numbers from the B9 case of the
+    ring's own off-diagonal call at gpt_small's shard (``gpt_small_past``:
+    bf16 for sm90, fp32 for simt); ``max_abs_err`` over every B9 case of
+    that kernel and variant."""
+    at = {r["dtype"]: r for r in b9 or () if r["case"] == "gpt_small_past"}
+    entries = []
+    for name, key, variant, src, line in OFFSET_ENTRIES:
+        runs = [r["offset_launches"] for r in ring or ()]
+        if ring4:
+            runs.append(ring4["offset_launches"])
+        e = dict(name=name, route="cuda",
+                 source=f"horovod_tpu_torch/csrc/{src}",
+                 replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
+                 launches=sum(r[f"{key}_{variant}"] for r in runs)
+                 if runs else None,
+                 max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+                 bound_by=None, library_ms=None)
+        case = at.get("bfloat16" if variant == "sm90" else "float32")
+        if case:
+            e.update(max_abs_err=max(r["errors"][o]["abs"] for r in b9
+                                     if r["variant"] == variant
+                                     for o in _OUTPUTS[key]),
+                     ms=case[key]["kernel_ms"], plain_ms=case[key]["plain_ms"],
+                     bound_ms=case[key]["bound_ms"],
+                     bound_by=case[key]["bound_by"],
+                     library_ms=case[key]["library_ms"])
+        entries.append(e)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3487,11 +4174,12 @@ def main(argv=None) -> int:
                                        "warning")):
                 log(f"  {name}: {line.strip()}")
     kern = train_kern = bn_kern = serving = train = resnet = None
-    train_oracle = remat = pipeline = None
+    train_oracle = remat = pipeline = b9 = ring = ring4 = None
     if "kernels" in phases:
         log("phase kernels:")
         kern = phase_kernels()
         train_kern = phase_train_kernels()
+        b9 = phase_b9_kernels()
         bn_kern = phase_bn_kernels()
     if "serving" in phases:
         log("phase serving:")
@@ -3532,15 +4220,22 @@ def main(argv=None) -> int:
     if "pipeline" in phases:
         log("phase pipeline:")
         pipeline = phase_pipeline(resnet)
+    if "ring" in phases:
+        log("phase ring:")
+        ring = phase_ring()
     if "dp4" in phases:
         log("phase dp4:")
         phase_dp4(args.roots.split(","))
+    if "ring4" in phases:
+        log("phase ring4:")
+        ring4 = phase_ring4()
     runs = [r for r in (train, overlap, zero, remat) if r]
     if runs:  # the training kernels ran on up to four main paths
         train = dict(train or {}, launches={k: sum(
             r["launches"][k] for r in runs) for k in TRAIN_COUNTS})
     entries = (kernel_entries(kern, train_kern, serving, train,
                               train_oracle, oracle, (spec, disagg))
+               + offset_entries(b9, ring, ring4)
                + bn_entries(bn_kern, (resnet, pipeline)))
     log(card)
     log(json.dumps({"kernels": entries}))

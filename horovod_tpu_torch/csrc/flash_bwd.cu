@@ -32,6 +32,12 @@
 //        δ are read through their strides, in place of the JAX package's
 //        regrouping reshape.
 //
+// Both take the JAX kernels' uniform kv_offset (kv_off: the global
+// position of the first key minus that of the first query; 0 for
+// self-attention, (src − idx)·S for ring attention's off-diagonal blocks):
+// the mask and both loop bounds act on global positions, and rows or keys
+// that see nothing come out as zeros.
+//
 // Numerics follow the JAX kernels: q is cast to fp32 and multiplied by
 // sm_scale before QKᵀ; accurate expf (no fast math); accumulation in fp32;
 // dQ and dK are multiplied by sm_scale at the end, dV is not; outputs are
@@ -67,6 +73,7 @@ struct Params {
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
   int causal;
   int window;  // <= 0: none
+  int kv_off;  // global K start minus global Q start
   float sm_scale;
 };
 
@@ -131,7 +138,7 @@ flash_bwd_dq_kernel(const Params p) {
 
   const int2 range = kb_range(q0, kBlockRows, kTile,
                               (p.S + kTile - 1) / kTile, p.causal,
-                              p.window, 0);
+                              p.window, p.kv_off);
   float acc[kRows][NJ];
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
@@ -189,7 +196,7 @@ flash_bwd_dq_kernel(const Params p) {
     for (int r = 0; r < kRows; ++r) {
       const int q_pos = q0 + warp * kRows + r;
       const bool ok = q_pos < p.S &&
-                      visible(q_pos, key, p.S, 0, p.causal, p.window);
+                      visible(q_pos, key, p.S, p.kv_off, p.causal, p.window);
       const float pr = ok ? expf(s[r] - lse[r]) : 0.f;
       ds[r] = pr * (dp[r] - delta[r]);
     }
@@ -267,11 +274,13 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  // _qb_range: _kb_range with q and k swapped and the offset negated
-  // (offset 0 here), the causal lower bound joined by max
+  // _qb_range: _kb_range with q and k swapped and the offset negated,
+  // the causal lower bound (the first query tile at or after the shifted
+  // diagonal) joined by max
   int2 range = kb_range(k0, kBlockRows, kTile, (p.S + kTile - 1) / kTile,
-                        0, p.window, 0);
-  if (p.causal) range.x = max(range.x, max(0, floor_div(k0, kTile)));
+                        0, p.window, -p.kv_off);
+  if (p.causal)
+    range.x = max(range.x, max(0, floor_div(k0 + p.kv_off, kTile)));
 
   float dk[kRows][NJ], dv[kRows][NJ];
 #pragma unroll
@@ -336,7 +345,7 @@ flash_bwd_dkv_kernel(const Params p) {
       for (int r = 0; r < kRows; ++r) {
         const int key = k0 + warp * kRows + r;
         const bool ok = q_pos < p.S &&
-                        visible(q_pos, key, p.S, 0, p.causal, p.window);
+                        visible(q_pos, key, p.S, p.kv_off, p.causal, p.window);
         pr[r] = ok ? expf(s[r] - lse) : 0.f;
         ds[r] = pr[r] * (dp[r] - delta);
       }
@@ -435,17 +444,18 @@ int entry(const Params& p, int dkv, int is_bf16, void* stream) {
 
 // Strides are in elements, (batch, sequence, head) for each of q, k, v,
 // dO and the outputs; the last dim is contiguous.  lse and delta are
-// (B, H, S) fp32 contiguous.
+// (B, H, S) fp32 contiguous.  kv_off: global K start minus global Q start.
 extern "C" int hvd_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
     int B, int S, int H, int Hkv, int D, const long long* strides,
-    int causal, int window, float sm_scale, int is_bf16, void* stream) {
+    int causal, int window, int kv_off, float sm_scale, int is_bf16,
+    void* stream) {
   const long long* s = strides;  // q, k, v, dO, dq: 5 x (b, s, h)
   Params p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, S, H, Hkv, D,
            {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
            {s[9], s[10], s[11]}, {s[12], s[13], s[14]}, {0, 0, 0}, {0, 0, 0},
-           causal, window, sm_scale};
+           causal, window, kv_off, sm_scale};
   return entry(p, 0, is_bf16, stream);
 }
 
@@ -453,12 +463,13 @@ extern "C" int hvd_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
     int B, int S, int H, int Hkv, int D, const long long* strides,
-    int causal, int window, float sm_scale, int is_bf16, void* stream) {
+    int causal, int window, int kv_off, float sm_scale, int is_bf16,
+    void* stream) {
   const long long* s = strides;  // q, k, v, dO, dk, dv: 6 x (b, s, h)
   Params p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, S, H, Hkv, D,
            {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
            {s[9], s[10], s[11]}, {0, 0, 0}, {s[12], s[13], s[14]},
-           {s[15], s[16], s[17]}, causal, window, sm_scale};
+           {s[15], s[16], s[17]}, causal, window, kv_off, sm_scale};
   return entry(p, 1, is_bf16, stream);
 }
 

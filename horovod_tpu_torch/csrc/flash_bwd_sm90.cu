@@ -52,6 +52,15 @@
 //     dPᵀ is started only once Pᵀ's fp32 copy is no longer needed.  Under
 //     causal masking key tile 0 sees every query tile, so the natural
 //     block order is the heaviest first.
+// Both take the JAX kernels' uniform kv_offset (kv_off: the global
+// position of the first key minus that of the first query; 0 for
+// self-attention, (src − idx)·S for ring attention's off-diagonal blocks):
+// the mask, the edge test and both loop bounds act on global positions
+// (the causal lower bound of dkv is a floor division of the shifted
+// diagonal), and rows or keys that see nothing come out as zeros.  The
+// offset's presence is a template flag (kOffset): offset 0 compiles to the
+// self-attention kernels with the offset folded away (on an H100, dq at
+// gpt_small's shape ran 8 % slower reading a runtime offset of 0).
 // P is zeroed explicitly where the mask hides an entry (causal, window,
 // q ≥ S, k ≥ S), evaluated only on tiles that cross one of those edges:
 // TMA's zero fill past S makes Q = dO = 0 there, which would leave
@@ -112,23 +121,26 @@ struct Params {
   long long o0_sb, o0_ss, o0_sh, o1_sb, o1_ss, o1_sh;
   int window;  // <= 0: none
   int causal;
+  int kv_off;  // global K start minus global Q start
   float sm_scale;
   float scale_log2;  // sm_scale * log2(e)
 };
 
 // does any (query, key) pair of the 64-query x 64-key tile at (q0, k0)
-// need the mask: the causal diagonal, the window's edge, or S?
-__device__ __forceinline__ bool tile_edge(int q0, int k0, const Params& p) {
-  const int rel_lo = q0 - (k0 + 63);
-  const int rel_hi = q0 + 63 - k0;
+// need the mask: the (shifted) causal diagonal, the window's edge, or S?
+__device__ __forceinline__ bool tile_edge(int q0, int k0, int kv_off,
+                                          const Params& p) {
+  const int rel_lo = q0 - (k0 + 63) - kv_off;
+  const int rel_hi = q0 + 63 - k0 - kv_off;
   bool e = q0 + 64 > p.S || k0 + 64 > p.S || (p.causal && rel_lo < 0);
   if (p.window > 0)
     e = e || rel_hi >= p.window || (!p.causal && rel_lo <= -p.window);
   return e;
 }
 
-__device__ __forceinline__ bool kept(int q, int k, const Params& p) {
-  return q < p.S && visible(q, k, p.S, 0, p.causal, p.window);
+__device__ __forceinline__ bool kept(int q, int k, int kv_off,
+                                     const Params& p) {
+  return q < p.S && visible(q, k, p.S, kv_off, p.causal, p.window);
 }
 
 __device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty,
@@ -222,7 +234,7 @@ __device__ __forceinline__ int2 own_tiles(int lo, int hi, int n_tiles) {
 
 // -- dQ ----------------------------------------------------------------------
 
-template <int D>
+template <int D, bool kOffset>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -239,6 +251,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t empty = full + 8 * kStages;
   const uint32_t own_bar = empty + 8 * kStages;
 
+  const int kv_off = kOffset ? p.kv_off : 0;
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
@@ -247,7 +260,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (p.causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) *
                  kOwn;  // causal: the heaviest Q tiles first
   const int n_kb = (p.S + kTile - 1) / kTile;
-  const int2 range = kb_range(q0, kOwn, kTile, n_kb, p.causal, p.window, 0);
+  const int2 range =
+      kb_range(q0, kOwn, kTile, n_kb, p.causal, p.window, kv_off);
   const int n_tiles = max(0, range.y - range.x);
   const int warp = uniform_warp();
   const int lane = threadIdx.x & 31;
@@ -276,7 +290,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = 16 * (warp & 3) + (lane >> 2);  // row in the warpgroup
   const int c2 = 2 * (lane & 3);                 // first column, per 8
   const int qw0 = q0 + 64 * wg;
-  const int2 kr = kb_range(qw0, 64, kTile, n_kb, p.causal, p.window, 0);
+  const int2 kr =
+      kb_range(qw0, 64, kTile, n_kb, p.causal, p.window, kv_off);
   const int2 mine = own_tiles(kr.x - range.x, kr.y - range.x, n_tiles);
   float lse2[2], dlt[2];  // this thread's rows: lse·log2(e), δ
 #pragma unroll
@@ -322,13 +337,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (t > mine.x) release(t - 1);
     wg_wait<1>();  // S done
     pin(s);
-    const bool edge = tile_edge(qw0, kb * kTile, p);
+    const bool edge = tile_edge(qw0, kb * kTile, kv_off, p);
 #pragma unroll
     for (int e = 0; e < kTile / 2; ++e) {
       const int hh = (e >> 1) & 1;
       float pr = ex2(fmaf(s[e], p.scale_log2, -lse2[hh]));
       if (edge && !kept(qw0 + r0 + 8 * hh,
-                        kb * kTile + 8 * (e >> 2) + c2 + (e & 1), p))
+                        kb * kTile + 8 * (e >> 2) + c2 + (e & 1), kv_off, p))
         pr = 0.f;
       s[e] = pr;
     }
@@ -360,7 +375,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- dK, dV ------------------------------------------------------------------
 
-template <int D>
+template <int D, bool kOffset>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -383,16 +398,18 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t empty = full + 8 * kStages;
   const uint32_t own_bar = empty + 8 * kStages;
 
+  const int kv_off = kOffset ? p.kv_off : 0;
   const int bkv = blockIdx.x;
   const int b = bkv / p.Hkv;
   const int hk = bkv - b * p.Hkv;
   const int group = p.H / p.Hkv;
   const int k0 = blockIdx.y * kOwn;  // causal: key tile 0 is the heaviest
   const int n_qt = (p.S + kTile - 1) / kTile;
-  // _qb_range: kb_range with q and k swapped (offset 0), the causal lower
-  // bound joined by max
-  int2 range = kb_range(k0, kOwn, kTile, n_qt, 0, p.window, 0);
-  if (p.causal) range.x = max(range.x, k0 / kTile);
+  // _qb_range: kb_range with q and k swapped and the offset negated, the
+  // causal lower bound (the first query tile at or after the shifted
+  // diagonal, a floor division: the offset may be negative) joined by max
+  int2 range = kb_range(k0, kOwn, kTile, n_qt, 0, p.window, -kv_off);
+  if (p.causal) range.x = max(range.x, max(0, floor_div(k0 + kv_off, kTile)));
   const int per_head = max(0, range.y - range.x);
   const int n_tiles = group * per_head;
   const int warp = uniform_warp();
@@ -437,8 +454,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = 16 * (warp & 3) + (lane >> 2);  // key row in the warpgroup
   const int c2 = 2 * (lane & 3);                 // first query column, per 8
   const int kw0 = k0 + 64 * wg;
-  int2 qr = kb_range(kw0, 64, kTile, n_qt, 0, p.window, 0);
-  if (p.causal) qr.x = max(qr.x, kw0 / kTile);
+  int2 qr = kb_range(kw0, 64, kTile, n_qt, 0, p.window, -kv_off);
+  if (p.causal) qr.x = max(qr.x, max(0, floor_div(kw0 + kv_off, kTile)));
   const int2 mine = own_tiles((qr.x - range.x) * group,
                               (qr.y - range.x) * group, n_tiles);
   float dk[D / 2], dv[D / 2];
@@ -465,7 +482,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t qs = stage(t);
     const uint32_t dos = qs + L::kTileBytes;
     const float* sl = stats + (t % kStages) * L::kStatFloats;
-    const bool edge = tile_edge(q0, kw0, p);
+    const bool edge = tile_edge(q0, kw0, kv_off, p);
     float s[kTile / 2], dp[kTile / 2];
     uint32_t pa[kTile / 16][4], da[kTile / 16][4];
     pin(s);
@@ -485,7 +502,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         const int e = 4 * i + x;
         float pr = ex2(fmaf(s[e], p.scale_log2, -((x & 1) ? l2.y : l2.x)));
         if (edge && !kept(q0 + 8 * i + c2 + (x & 1),
-                          kw0 + r0 + 8 * (x >> 1), p))
+                          kw0 + r0 + 8 * (x >> 1), kv_off, p))
           pr = 0.f;
         s[e] = pr;
       }
@@ -625,21 +642,33 @@ template <int D>
 cudaError_t launch(int dkv, const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const CUtensorMap& tdo,
                    const Params& p, int B, cudaStream_t stream) {
-  static size_t allowed_dq = 48 * 1024, allowed_dkv = 48 * 1024;
+  // one shared-memory allowance per kernel: [dkv][kOffset]
+  static size_t allowed[2][2] = {{48 * 1024, 48 * 1024},
+                                 {48 * 1024, 48 * 1024}};
   const int blocks = (p.S + kOwn - 1) / kOwn;
+  const int off = p.kv_off != 0;
+  const dim3 dkv_grid(B * p.Hkv, blocks), dq_grid(B * p.H, blocks);
   if (dkv)
-    return run(flash_bwd_dkv_sm90_kernel<D>, Cfg<D>::kSmem, &allowed_dkv,
-               dim3(B * p.Hkv, blocks), kThreads, stream, tq, tk, tv, tdo, p);
-  return run(flash_bwd_dq_sm90_kernel<D>, Cfg<D>::kSmem, &allowed_dq,
-             dim3(B * p.H, blocks), kThreads, stream, tq, tk, tv, tdo, p);
+    return off ? run(flash_bwd_dkv_sm90_kernel<D, true>, Cfg<D>::kSmem,
+                     &allowed[1][1], dkv_grid, kThreads, stream, tq, tk, tv,
+                     tdo, p)
+               : run(flash_bwd_dkv_sm90_kernel<D, false>, Cfg<D>::kSmem,
+                     &allowed[1][0], dkv_grid, kThreads, stream, tq, tk, tv,
+                     tdo, p);
+  return off ? run(flash_bwd_dq_sm90_kernel<D, true>, Cfg<D>::kSmem,
+                   &allowed[0][1], dq_grid, kThreads, stream, tq, tk, tv, tdo,
+                   p)
+             : run(flash_bwd_dq_sm90_kernel<D, false>, Cfg<D>::kSmem,
+                   &allowed[0][0], dq_grid, kThreads, stream, tq, tk, tv, tdo,
+                   p);
 }
 
 // strides: q, k, v, dO, then the outputs, each (b, s, h) in elements
 int entry(int dkv, const void* q, const void* k, const void* v,
           const void* dout, const float* lse, const float* delta, void* o0,
           void* o1, int B, int S, int H, int Hkv, int D,
-          const long long* st, int causal, int window, float sm_scale,
-          void* stream) {
+          const long long* st, int causal, int window, int kv_off,
+          float sm_scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
@@ -656,7 +685,7 @@ int entry(int dkv, const void* q, const void* k, const void* v,
                  static_cast<__nv_bfloat16*>(o1), lse, delta, H, Hkv, S,
                  st[12], st[13], st[14],
                  dkv ? st[15] : 0, dkv ? st[16] : 0, dkv ? st[17] : 0,
-                 window, causal, sm_scale, sm_scale * kLog2e};
+                 window, causal, kv_off, sm_scale, sm_scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(D == 64 ? launch<64>(dkv, tq, tk, tv, tdo, p, B, s)
                        : launch<128>(dkv, tq, tk, tv, tdo, p, B, s));
@@ -689,22 +718,23 @@ cudaError_t launch_tile(const void* a, const void* b, float* out,
 // base pointers and strides 16-byte aligned, as TMA requires).  lse and
 // delta are (B, H, S) fp32 contiguous.  strides: q, k, v, dO, dq:
 // 5 x (b, s, h) elements; for dkv: q, k, v, dO, dk, dv: 6 x (b, s, h).
+// kv_off: global K start minus global Q start.
 extern "C" int hvd_flash_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int S, int H,
     int Hkv, int D, const long long* strides, int causal, int window,
-    float sm_scale, void* stream) {
+    int kv_off, float sm_scale, void* stream) {
   return entry(0, q, k, v, dout, lse, delta, dq, nullptr, B, S, H, Hkv, D,
-               strides, causal, window, sm_scale, stream);
+               strides, causal, window, kv_off, sm_scale, stream);
 }
 
 extern "C" int hvd_flash_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv, int B, int S,
     int H, int Hkv, int D, const long long* strides, int causal, int window,
-    float sm_scale, void* stream) {
+    int kv_off, float sm_scale, void* stream) {
   return entry(1, q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
-               strides, causal, window, sm_scale, stream);
+               strides, causal, window, kv_off, sm_scale, stream);
 }
 
 // One tile product on one warpgroup (the card's unit tests): rs = 0:

@@ -8,8 +8,10 @@
 //     the serving path): each batch row at its own global offset
 //     kv_start[b] - q_start[b], always causal, every gathered key valid;
 //   * uniform-offset launch (_forward_impl, the training path's
-//     flash_attention): offset 0 for every row, causal or bidirectional,
-//     with or without a window, C = S; it also writes the log-sum-exp the
+//     flash_attention, and flash_block_forward, ring attention's blocks):
+//     one offset for every row (0 for self-attention, (src − idx)·S for
+//     the ring's off-diagonal blocks), causal or bidirectional, with or
+//     without a window, C = S; it also writes the log-sum-exp the
 //     backward kernels (flash_bwd.cu) recompute the probabilities from.
 //
 // What bounds it on an H100: a decode step (C = 1) reads every live K/V

@@ -4,7 +4,9 @@
 // Replaces horovod_tpu/ops/flash_attention.py::_fwd_kernel for every bf16
 // launch with D in {64, 128} and more than four query rows: the training
 // forward (_forward_impl's uniform-offset launch, which also writes the
-// log-sum-exp for the backward kernels) and serving's chunked prefill
+// log-sum-exp for the backward kernels: offset 0 for self-attention,
+// (src − idx)·S for ring attention's off-diagonal blocks,
+// flash_block_forward) and serving's chunked prefill
 // (flash_chunk_attention's per-row-offset launch).  fp32 launches, other
 // head widths and decode (C <= 4) stay on the CUDA-core kernel in
 // flash_fwd.cu; the wrapper picks by dtype, D and C (_fwd_variant).

@@ -3,7 +3,7 @@
 Port of ``horovod_tpu/models/transformer.py``: the same config, the same
 pre-norm blocks (RMSNorm eps 1e-5, RoPE, GQA attention, SiLU-gated MLP,
 tied embedding) and the same numerics, so logits and gradients match the
-flax model on the same weights.  Three attention paths:
+flax model on the same weights.  Four attention paths:
 
 * ``paged`` (the serving engine's): K/V are written into and gathered
   from the paged cache (``serving/kv_cache.py``) and attention runs
@@ -12,6 +12,9 @@ flax model on the same weights.  Three attention paths:
 * ``"flash"`` (training): :func:`~horovod_tpu_torch.ops.flash_attention.
   flash_attention`, whose forward and backward are the hand-written
   kernels;
+* ``"ring"`` / ``"ring_flash"`` (long context): the sequence sharded
+  over the ranks, :func:`~horovod_tpu_torch.parallel.ring_attention.
+  ring_attention` with the dense or the flash-kernel impl;
 * ``"dot"``: the plain dense :func:`causal_dot_attention` (the oracle).
 
 Weights keep the flax layout and names (``embed.embedding``,
@@ -45,10 +48,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..common import basics
 from ..common.device import resolve_device
 from ..ops.flash_attention import (
     flash_attention, flash_chunk_attention, flash_decode_paged,
 )
+from ..parallel.ring_attention import ring_attention
 from ._remat import remat_call
 
 _NORM_EPS = 1e-5
@@ -114,8 +119,16 @@ class TransformerConfig:
     mlp_ratio: int = 4
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    #: 'dot' | 'flash' (the paged serving path runs the kernel for both)
+    #: 'dot' | 'flash' | 'ring' | 'ring_flash' (the paged serving path
+    #: runs the kernel for 'dot' and 'flash' and refuses the ring impls)
     attention_impl: str = "dot"
+    #: the ring impls' sequence axis (the reference's mesh axis name).  A
+    #: port with one process per GPU has one axis, so any name means the
+    #: sequence is sharded over the world group, in rank order: each
+    #: rank feeds its S_local tokens, and default positions become global
+    #: (``rank * S_local + arange``).  None keeps shard-local default
+    #: positions (the ring itself still spans the world)
+    seq_axis_name: Optional[str] = None
     causal: bool = True
     #: sliding window: each token attends the last `window` positions,
     #: itself included
@@ -318,12 +331,17 @@ class Attention(nn.Module):
                     q, paged.k, paged.v, paged.tables, paged.lens + 1,
                     layer=layer, window=cfg.window,
                     max_pages=paged.gather_pages)
+        elif cfg.attention_impl in ("ring", "ring_flash"):
+            out = ring_attention(
+                q, k, v, axis_name=cfg.seq_axis_name,
+                impl="flash" if cfg.attention_impl == "ring_flash"
+                else "dense", causal=cfg.causal, window=cfg.window)
         elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=cfg.causal,
                                   window=cfg.window)
         elif cfg.attention_impl != "dot":
-            raise NotImplementedError(
-                f"attention_impl {cfg.attention_impl!r} is not ported yet")
+            raise ValueError(
+                f"unknown attention_impl {cfg.attention_impl!r}")
         else:
             out = causal_dot_attention(q, k, v, causal=cfg.causal,
                                        window=cfg.window)
@@ -398,8 +416,14 @@ class Transformer(nn.Module):
     def forward(self, tokens, positions=None, paged=None):
         cfg = self.cfg
         if positions is None:
-            positions = torch.arange(
-                tokens.shape[1], device=tokens.device).expand(tokens.shape)
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            if cfg.attention_impl in ("ring", "ring_flash") and \
+                    cfg.seq_axis_name:
+                # the sequence is sharded over the ranks: global position
+                # = rank * S_local + local offset (RoPE must match the
+                # global offsets ring attention masks with)
+                positions = positions + basics.rank() * tokens.shape[1]
+            positions = positions.expand(tokens.shape)
         # nn.Embed: the gathered rows in cfg.dtype
         x = self.embed.embedding[tokens].to(cfg.dtype)
         # remat where the JAX model applies it: training, never serving

@@ -40,7 +40,8 @@ def modeled_kvsnap_bytes(
     replica-loss migration) payload.  Per block the snapshot carries one
     K page and one V page of ``(num_layers, block_size, kv_heads,
     head_dim)`` each, plus the block's verified int32 token run (bf16
-    pages travel as ``uint16`` bits: the same bytes).  Returns
+    pages travel as ``ml_dtypes.bfloat16`` or ``uint16`` bits: the same
+    bytes).  Returns
     ``{"page_bytes", "token_bytes", "wire_bytes"}`` (ints)."""
     if num_blocks < 0 or block_size < 1:
         raise ValueError(

@@ -26,6 +26,14 @@ about that:
   the training path) and ``simt`` (the CUDA-core kernels: fp32, other
   head widths).
 
+All three take the JAX kernels' uniform ``kv_offset``: the global
+position of the first key minus that of the first query, 0 for
+self-attention and ``(src − idx)·S`` for the off-diagonal blocks of ring
+attention (``parallel/ring_attention.py``), which call
+:func:`flash_block_forward` and :func:`flash_bwd_dq` /
+:func:`flash_bwd_dkv` with it.  Masks and loop bounds act on global
+positions.
+
 Beside each kernel, computing the same function in plain PyTorch:
 :func:`flash_chunk_attention_reference`, :func:`flash_attention_reference`,
 :func:`flash_decode_paged_reference` (:func:`gather_pages`, then the
@@ -42,8 +50,9 @@ the plain versions, CUDA tensors launch the kernels (or raise).  Each
 kernel wrapper counts its launches in ``<wrapper>.launches``, and per
 variant in ``<wrapper>.sm90_launches`` and ``<wrapper>.simt_launches``
 (:func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda`,
-:func:`flash_bwd_dkv_cuda`); the paged decode in
-``flash_decode_paged.launches``.
+:func:`flash_bwd_dkv_cuda`), those at a non-zero uniform ``kv_offset``
+also in ``.offset_sm90_launches`` and ``.offset_simt_launches``; the
+paged decode in ``flash_decode_paged.launches``.
 """
 
 from __future__ import annotations
@@ -223,41 +232,45 @@ def flash_decode_paged_reference(q, k_pool, v_pool, tables, kv_lens, *,
                                            kv_start=kv_start)
 
 
-def _self_mask(s, causal, window, device):
-    """(S, S) ``_tile_mask`` of self-attention: offset 0, every key and
-    every query row valid (``_recompute_p``'s ``q_pos < seq_len`` holds
-    for every row of an unpadded tensor)."""
+def _self_mask(s, causal, window, device, kv_offset=0):
+    """(S, S) ``_tile_mask`` of S queries over S keys whose first key
+    sits ``kv_offset`` positions after the first query (0: self-
+    attention); every key and every query row valid (``_recompute_p``'s
+    ``q_pos < seq_len`` holds for every row of an unpadded tensor)."""
     pos = torch.arange(s, device=device)
-    return _tile_mask(pos[:, None], pos[None, :], causal, window,
-                      s).expand(s, s)
+    return _tile_mask(pos[:, None], pos[None, :], causal, window, s,
+                      kv_offset).expand(s, s)
 
 
-def flash_attention_reference(q, k, v, causal=True, window=None):
+def flash_attention_reference(q, k, v, causal=True, window=None,
+                              kv_offset=0):
     """Plain PyTorch version of the forward kernel's uniform-offset
     launch: ``(out, lse)`` with out (B, S, H, D) in q's dtype and lse
-    (B, H, S) fp32 — dense fp32 logits of q·sm_scale, the self-attention
-    ``_tile_mask``, a masked softmax."""
+    (B, H, S) fp32 — dense fp32 logits of q·sm_scale, the ``_tile_mask``
+    at ``kv_offset``, a masked softmax (rows that see no key: zeros and
+    the −1e30 sentinel)."""
     _group_of(q, k)
-    return _masked_attention(q, k, v,
-                             _self_mask(q.shape[1], causal, window, q.device))
+    return _masked_attention(q, k, v, _self_mask(
+        q.shape[1], causal, window, q.device, kv_offset))
 
 
-def _recompute_p(q, k, lse, causal, window):
+def _recompute_p(q, k, lse, causal, window, kv_offset=0):
     """(B, H, S, S) fp32 probabilities from the saved lse, masked entries
     zeroed explicitly (``_recompute_p``)."""
-    mask = _self_mask(q.shape[1], causal, window, q.device)
+    mask = _self_mask(q.shape[1], causal, window, q.device, kv_offset)
     p = torch.exp(_grouped_logits(q, k) - lse[..., None])
     return torch.where(mask, p, torch.zeros_like(p))
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
-                           window=None):
+                           window=None, kv_offset=0):
     """Plain PyTorch version of the dq kernel: P from the saved lse
     (B, H, S), ``dS = P∘(dO·Vᵀ − δ)`` with δ (B, H, S),
-    ``dQ = dS·K · sm_scale``; returns dQ (B, S, H, D) in q's dtype."""
+    ``dQ = dS·K · sm_scale``, the mask at ``kv_offset``; returns dQ
+    (B, S, H, D) in q's dtype."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
-    p = _recompute_p(q, k, lse, causal, window)
+    p = _recompute_p(q, k, lse, causal, window, kv_offset)
     ds = p * (_grouped_dots(do, v) - delta[..., None])
     dq = torch.einsum("bhgqk,bkhd->bqhgd",
                       ds.reshape(b, h_kv, h // h_kv, s, s), k.float())
@@ -265,13 +278,14 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
-                            window=None):
+                            window=None, kv_offset=0):
     """Plain PyTorch version of the dkv kernel: ``dV = Σ Pᵀ·dO`` and
     ``dK = Σ dSᵀ·Q · sm_scale``, each summed over the query heads that
-    share a kv head; returns (dK, dV) (B, S, H_kv, D) in k's dtype."""
+    share a kv head, the mask at ``kv_offset``; returns (dK, dV)
+    (B, S, H_kv, D) in k's dtype."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
-    p = _recompute_p(q, k, lse, causal, window)
+    p = _recompute_p(q, k, lse, causal, window, kv_offset)
     ds = p * (_grouped_dots(do, v) - delta[..., None])
 
     def per_kv(x, y):  # Σ over the group of xᵀ·y -> (B, S, H_kv, D)
@@ -385,12 +399,13 @@ _SM90_ARGS = {"hvd_flash_fwd_sm90": [_P] * 6 + [_I] * 6 + [_L] * 12
               + [_I, _I, _F, _P],
               "hvd_wgmma_tile": [_P, _P, _P, _I, _I, _P]}
 _BWD_ARGS = {
-    "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
-    "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _F, _I, _P],
+    "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _I, _F, _I, _P],
+    "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _I, _F, _I, _P],
 }
 _BWD_SM90_ARGS = {
-    "hvd_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _F, _P],
-    "hvd_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _F, _P],
+    "hvd_flash_bwd_dq_sm90": [_P] * 7 + [_I] * 5 + [_P, _I, _I, _I, _F, _P],
+    "hvd_flash_bwd_dkv_sm90": [_P] * 8 + [_I] * 5 + [_P, _I, _I, _I, _F,
+                                                     _P],
     "hvd_wgmma_bwd_tile": [_P, _P, _P, _I, _I, _P],
 }
 
@@ -399,11 +414,37 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _count(wrapper, variant):
-    """One successful launch of ``wrapper``'s kernel in ``variant``."""
+def _count(wrapper, variant, at_offset=False):
+    """One successful launch of ``wrapper``'s kernel in ``variant``
+    (``at_offset``: at a non-zero uniform ``kv_offset``)."""
     wrapper.launches += 1
-    setattr(wrapper, f"{variant}_launches",
-            getattr(wrapper, f"{variant}_launches") + 1)
+    for name in [f"{variant}_launches"] + (
+            [f"offset_{variant}_launches"] if at_offset else []):
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _zero_counts(*wrappers):
+    """Each wrapper's launch counts, as they start: 0."""
+    for fn in wrappers:
+        fn.launches = fn.sm90_launches = fn.simt_launches = 0
+        fn.offset_sm90_launches = fn.offset_simt_launches = 0
+
+
+_UNIFORM_OFFS = {}
+
+
+def _uniform_offs(b, kv_offset, device) -> torch.Tensor:
+    """The (B,) int32 offsets of a uniform launch, made once per
+    (device, B, offset) and kept: the copy to the card completes before
+    the first launch reads it, and no launch writes it."""
+    key = (device, b, kv_offset)
+    offs = _UNIFORM_OFFS.get(key)
+    if offs is None:
+        if len(_UNIFORM_OFFS) >= 1024:
+            _UNIFORM_OFFS.clear()
+        offs = torch.full((b,), kv_offset, dtype=torch.int32).to(device)
+        _UNIFORM_OFFS[key] = offs
+    return offs
 
 
 def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
@@ -414,17 +455,24 @@ def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
     ``csrc/flash_fwd.cu`` (the rest).
 
     q: (B, C, H, D); k, v: (B, S, H_kv, D) with ``H_kv | H``; offs: (B,)
-    int32 global K start minus global Q start per row.  bf16 or fp32,
-    last dim contiguous, base pointers and strides 16-byte aligned
+    int32 global K start minus global Q start per row, or an int: one
+    offset for every row (the uniform launch; its (B,) tensor is kept
+    on the card, :func:`_uniform_offs`).  bf16 or fp32, last dim
+    contiguous, base pointers and strides 16-byte aligned
     (:func:`_check_aligned`), D a multiple of 8 up to 256.
     ``causal=False`` is bidirectional (a window then reaches both
     ways).
     Returns o (B, C, H, D) in q's dtype, plus the fp32 log-sum-exp
-    (B, H, C) when ``with_lse``.  Raises on anything the kernel does
-    not take and on a launch error; ``flash_fwd_cuda.launches`` counts
-    successful launches, ``flash_fwd_cuda.sm90_launches`` and
-    ``.simt_launches`` those of each variant."""
+    (B, H, C) when ``with_lse`` (rows that see no key: zeros and the
+    −1e30 sentinel).  Raises on anything the kernel does not take and
+    on a launch error; ``flash_fwd_cuda.launches`` counts successful
+    launches, ``flash_fwd_cuda.sm90_launches`` and ``.simt_launches``
+    those of each variant, ``.offset_sm90_launches`` and
+    ``.offset_simt_launches`` those at a non-zero uniform offset."""
     b, c, h, d = q.shape
+    at_offset = isinstance(offs, int) and offs != 0
+    if isinstance(offs, int):
+        offs = _uniform_offs(b, offs, q.device)
     _check_cuda(q, k, v, ("offs", offs))
     if offs.dtype != torch.int32 or offs.shape != (b,) \
             or not offs.is_contiguous():
@@ -447,13 +495,8 @@ def flash_fwd_cuda(q, k, v, offs, *, window=None, with_lse=False,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], 0 if window is None else int(window),
             int(bool(causal)), 1.0 / math.sqrt(d), *tail, _stream(q)))
-    _count(flash_fwd_cuda, variant)
+    _count(flash_fwd_cuda, variant, at_offset)
     return (o, lse) if with_lse else o
-
-
-flash_fwd_cuda.launches = 0
-flash_fwd_cuda.sm90_launches = 0
-flash_fwd_cuda.simt_launches = 0
 
 
 def wgmma_tile_cuda(a, b, pv):
@@ -509,10 +552,12 @@ def wgmma_bwd_tile_cuda(a, b, rs):
                          "hvd_wgmma_bwd_tile", a, b, d if rs else 64, rs)
 
 
-def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
+def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window,
+              kv_offset):
     """Check and launch one backward kernel, ``entry`` (``hvd_flash_bwd_
     dq`` or ``hvd_flash_bwd_dkv``) in the variant :func:`_bwd_variant`
-    gives; ``outs`` the (name, tensor) outputs.  Returns the variant."""
+    gives, at the uniform ``kv_offset``; ``outs`` the (name, tensor)
+    outputs.  Returns the variant."""
     b, s, h, d = q.shape
     if k.shape[1] != s:
         raise ValueError(f"k length {k.shape[1]} != q length {s}")
@@ -538,50 +583,47 @@ def _bwd_cuda(entry, q, k, v, do, lse, delta, outs, causal, window):
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             b, s, h, k.shape[2], d, ctypes.addressof(arr),
             int(bool(causal)), 0 if window is None else int(window),
-            1.0 / math.sqrt(d), *tail, _stream(q)))
+            int(kv_offset), 1.0 / math.sqrt(d), *tail, _stream(q)))
     return variant
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True, window=None):
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal=True, window=None,
+                      kv_offset=0):
     """Launch the dq kernel on CUDA tensors, in the variant
     :func:`_bwd_variant` gives: ``csrc/flash_bwd_sm90.cu`` (bf16, D in
     {64, 128}) or ``csrc/flash_bwd.cu`` (the rest).
 
-    q, dO: (B, S, H, D); k, v: (B, S, H_kv, D); lse, delta: contiguous
-    (B, H, S) fp32.  Same dtype and layout rules as :func:`flash_fwd_cuda`.
-    Returns dQ (B, S, H, D) in q's dtype; ``flash_bwd_dq_cuda.launches``
-    counts successful launches, ``.sm90_launches`` and ``.simt_launches``
-    those of each variant."""
+    q, dO: (B, S, H, D); k, v: (B, S, H_kv, D) whose first key sits
+    ``kv_offset`` positions after the first query (an int; 0 for
+    self-attention); lse, delta: contiguous (B, H, S) fp32.  Same dtype
+    and layout rules as :func:`flash_fwd_cuda`.  Returns dQ (B, S, H, D)
+    in q's dtype (rows that see no key: zeros);
+    ``flash_bwd_dq_cuda.launches`` counts successful launches,
+    ``.sm90_launches`` and ``.simt_launches`` those of each variant,
+    ``.offset_sm90_launches`` and ``.offset_simt_launches`` those at a
+    non-zero offset."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     variant = _bwd_cuda("hvd_flash_bwd_dq", q, k, v, do, lse, delta,
-                        [("dQ", dq)], causal, window)
-    _count(flash_bwd_dq_cuda, variant)
+                        [("dQ", dq)], causal, window, kv_offset)
+    _count(flash_bwd_dq_cuda, variant, kv_offset != 0)
     return dq
 
 
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dq_cuda.sm90_launches = 0
-flash_bwd_dq_cuda.simt_launches = 0
-
-
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal=True,
-                       window=None):
-    """Launch the dkv kernel on CUDA tensors (the arguments and variant
-    rule of :func:`flash_bwd_dq_cuda`).  Returns (dK, dV), each
-    (B, S, H_kv, D) in k's dtype, the query-head group summed;
-    ``flash_bwd_dkv_cuda.launches`` counts successful launches,
-    ``.sm90_launches`` and ``.simt_launches`` those of each variant."""
+                       window=None, kv_offset=0):
+    """Launch the dkv kernel on CUDA tensors (the arguments, variant
+    rule and counts of :func:`flash_bwd_dq_cuda`).  Returns (dK, dV),
+    each (B, S, H_kv, D) in k's dtype, the query-head group summed (keys
+    no query sees: zeros)."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     variant = _bwd_cuda("hvd_flash_bwd_dkv", q, k, v, do, lse, delta,
-                        [("dK", dk), ("dV", dv)], causal, window)
-    _count(flash_bwd_dkv_cuda, variant)
+                        [("dK", dk), ("dV", dv)], causal, window, kv_offset)
+    _count(flash_bwd_dkv_cuda, variant, kv_offset != 0)
     return dk, dv
 
 
-flash_bwd_dkv_cuda.launches = 0
-flash_bwd_dkv_cuda.sm90_launches = 0
-flash_bwd_dkv_cuda.simt_launches = 0
+_zero_counts(flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
 
 
 # -- the paged decode kernel (csrc/flash_decode.cu) ---------------------------
@@ -798,33 +840,65 @@ def flash_decode_paged(q, k_pool, v_pool, tables, kv_lens, *, layer,
 flash_decode_paged.launches = 0
 
 
-def flash_forward(q, k, v, causal=True, window=None):
+def flash_forward(q, k, v, causal=True, window=None, kv_offset=0):
     """The uniform-offset forward: ``(out, lse)``, lse (B, H, S) fp32 —
     the kernel on CUDA tensors, the plain version on CPU ones."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, window)
-    offs = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
-    return flash_fwd_cuda(q, k, v, offs, window=window, with_lse=True,
-                          causal=causal)
+        return flash_attention_reference(q, k, v, causal, window, kv_offset)
+    return flash_fwd_cuda(q, k, v, int(kv_offset), window=window,
+                          with_lse=True, causal=causal)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
-    """dQ of :func:`flash_attention`: the kernel on CUDA tensors, the
-    plain version on CPU ones."""
+def _check_block(q, k, v, window):
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shapes differ: {k.shape} vs {v.shape}")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"k length {k.shape[1]} != q length {q.shape[1]}")
+    _group_of(q, k)
+
+
+def flash_block_forward(q, k, v, causal, window=None, kv_offset=None):
+    """One K/V block's attention for a Q block whose keys start
+    ``kv_offset`` positions after its queries (global K start minus
+    global Q start; None or 0: self-attention): the ring's building
+    block (``horovod_tpu/ops/flash_attention.py::flash_block_forward``).
+
+    q: (B, S, H, D); k, v: (B, S, H_kv, D), ``H_kv | H``.  Returns
+    ``(out, lse)``: out (B, S, H, D) in q's dtype, normalized within this
+    block; lse (B, H, S) fp32, the log-sum-exp of this block's scaled
+    logits, with the −1e30 sentinel (and zero output) for rows that see
+    no key of the block, so a log-sum-exp merge leaves them untouched.
+    CUDA tensors launch the forward kernel (a non-zero offset is counted
+    in ``flash_fwd_cuda.offset_*_launches``), CPU tensors run the plain
+    version."""
+    _check_block(q, k, v, window)
+    return flash_forward(q, k, v, bool(causal), window, kv_offset or 0)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None,
+                 kv_offset=0):
+    """dQ of :func:`flash_attention` (of :func:`flash_block_forward` at
+    ``kv_offset``, given the final lse and δ): the kernel on CUDA
+    tensors, the plain version on CPU ones."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window)
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window,
+                                      kv_offset)
     return flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
-                             window=window)
+                             window=window, kv_offset=int(kv_offset))
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
-    """(dK, dV) of :func:`flash_attention`: the kernel on CUDA tensors,
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None,
+                  kv_offset=0):
+    """(dK, dV) of :func:`flash_attention` (of one block at
+    ``kv_offset``, as :func:`flash_bwd_dq`): the kernel on CUDA tensors,
     the plain version on CPU ones."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
-                                       window)
+                                       window, kv_offset)
     return flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
-                              window=window)
+                              window=window, kv_offset=int(kv_offset))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -866,11 +940,5 @@ def flash_attention(q, k, v, causal: bool = True,
     (each token attends the last ``window`` positions, itself included;
     symmetric when bidirectional).  Any S works: the kernels mask the
     ragged tail of their tiles."""
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if k.shape != v.shape:
-        raise ValueError(f"k/v shapes differ: {k.shape} vs {v.shape}")
-    if k.shape[1] != q.shape[1]:
-        raise ValueError(f"k length {k.shape[1]} != q length {q.shape[1]}")
-    _group_of(q, k)
+    _check_block(q, k, v, window)
     return _FlashAttention.apply(q, k, v, bool(causal), window)

@@ -70,6 +70,11 @@ from .kv_cache import (
 from .scheduler import ContinuousBatchingScheduler, Request, Sequence
 from .speculative import Drafter, accept_greedy, make_drafter
 
+try:  # numpy's bfloat16 (no JAX import); the card's machine may lack it
+    from ml_dtypes import bfloat16 as _BF16
+except ImportError:  # pragma: no cover - exercised with the module hidden
+    _BF16 = None
+
 _CACHE_HIT = _instr.EXEC_CACHE.labels("hit")
 _CACHE_MISS = _instr.EXEC_CACHE.labels("miss")
 _LAT_FIRST = _instr.SERVE_TOKEN_LATENCY.labels("first")
@@ -195,9 +200,10 @@ class ServeConfig:
 
 
 def _page_tensor(page, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
-    """One ``kvsnap/1`` page (a numpy array; bf16 as 2-byte bits) as a
-    host tensor of the pool's dtype, or ``ValueError`` when its element
-    size, kind or shape differs from the pool's page."""
+    """One ``kvsnap/1`` page (a numpy array; bf16 as ``ml_dtypes``
+    bfloat16 or 2-byte integer bits) as a host tensor of the pool's
+    dtype, or ``ValueError`` when its element size, kind or shape
+    differs from the pool's page."""
     arr = np.asarray(page)
     size = torch.empty((), dtype=dtype).element_size()
     if arr.dtype.itemsize != size or tuple(arr.shape) != tuple(shape):
@@ -219,9 +225,13 @@ def _page_tensor(page, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
 
 
 def _host_pages(t: torch.Tensor) -> np.ndarray:
-    """A host tensor as numpy; bf16 as ``uint16`` arrays of its bits."""
+    """A host tensor as numpy.  numpy has no bfloat16: bf16 comes out as
+    an ``ml_dtypes.bfloat16`` view of its bits (the JAX package's page
+    dtype, so its engine assigns the values it meant), or as ``uint16``
+    bits where ``ml_dtypes`` is not installed."""
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
+        bits = t.view(torch.int16).numpy()
+        return bits.view(np.uint16 if _BF16 is None else _BF16)
     return t.numpy()
 
 

@@ -19,7 +19,9 @@ the JAX package's, key for key — replica migration and the
 prefill→decode handoff move these dicts between engines of either
 package.  Pages are numpy arrays of shape (num_layers, block_size,
 H_kv, D); numpy has no bfloat16, so the port carries bf16 pages as
-``uint16`` arrays of the same bits (same ``nbytes``).
+``ml_dtypes.bfloat16`` arrays, as the JAX package does (``uint16``
+arrays of the same bits where ``ml_dtypes`` is missing; same
+``nbytes``).
 """
 
 from __future__ import annotations

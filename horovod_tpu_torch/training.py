@@ -68,14 +68,21 @@ def create_train_state(model: torch.nn.Module, optimizer) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
-def _check_overlap(op: ReduceOp, stats) -> None:
-    """The reference's refusals for the overlapped step."""
+def _check_overlap(op: ReduceOp, stats, model) -> None:
+    """The reference's refusals for the overlapped step (the ring impls'
+    is ``overlap_segments``')."""
     if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(f"overlap supports Sum/Average gradient reduction, "
                          f"got {op!r}")
     if stats:
         raise ValueError("overlap=True does not support models with running "
                          "statistics (batch_stats)")
+    impl = getattr(getattr(model, "cfg", None), "attention_impl", None)
+    if impl in ("ring", "ring_flash"):
+        raise ValueError(
+            f"overlap=True does not support the sequence-sharded ring "
+            f"impls (attention_impl={impl!r}); use the plain step, "
+            f"data_parallel_train_step(overlap=False)")
 
 
 def _average_stats(stats) -> None:
@@ -99,7 +106,10 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
     optimizer (wrapping it in ``DistributedOptimizer`` as well would
     reduce twice).  ``loss`` is the rank-averaged loss, a 0-d tensor on
     the device (no host sync).  ``state`` must carry this ``model`` and
-    ``optimizer`` (:func:`create_train_state`).
+    ``optimizer`` (:func:`create_train_state`).  Over a ring-attention
+    transformer (``attention_impl="ring"|"ring_flash"``) a rank's shard
+    is its slice of the sequence: the average of the shards' mean losses
+    is the global mean, and the averaged gradients are its gradients.
 
     The gradients reduce in the buckets of a
     :class:`~.ops.fusion.BucketSchedule` over the model's parameters.
@@ -109,7 +119,8 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
     the backward (default: the fusion threshold).  A floating sum adds
     the ranks in one order whatever the buckets, so the two give
     bit-equal gradients.  ``overlap=True`` takes Sum and Average
-    only, and no model with running statistics.  Without overlap, a
+    only, no model with running statistics, and no ring-attention
+    transformer (whose sequence is sharded over the ranks).  Without overlap, a
     model with BatchNorm running statistics has them averaged across
     ranks after the update (replicas see different batches), in one
     grouped allreduce, as the JAX step averages its ``batch_stats``.
@@ -117,7 +128,7 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
     ``last_launches``)."""
     stats = running_stats(model)
     if overlap:
-        _check_overlap(op, stats)
+        _check_overlap(op, stats, model)
     reducer = _BucketReducer(model.parameters(), op=op,
                              bucket_bytes=bucket_bytes, overlap=overlap,
                              always_armed=False)
@@ -173,7 +184,7 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
     stats = running_stats(model)
     reducer = None
     if overlap:
-        _check_overlap(op, stats)
+        _check_overlap(op, stats, model)
         reducer = _BucketReducer(model.parameters(), op=op,
                                  bucket_bytes=bucket_bytes,
                                  always_armed=False)

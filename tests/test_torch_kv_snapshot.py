@@ -3,7 +3,13 @@
 * ``export_requests`` / ``export_blocks`` give the reference's dict, key
   for key and value for value, for the same engine state; the pages are
   byte-equal once the pools hold the same bytes, bf16 pages travelling
-  as ``uint16`` arrays of the reference's bits (same ``nbytes``).
+  as ``ml_dtypes.bfloat16`` arrays of the reference's bits, as the
+  reference's do (``uint16`` bits where ``ml_dtypes`` is missing; same
+  ``nbytes``).
+* a bf16 snapshot of the port imports into the JAX engine bit-equal and
+  resumes token-identically, in a speculative engine and through a
+  prefill→decode router whose decode tier is the JAX engine; with
+  ``ml_dtypes`` hidden the port's own round trip stays bit-equal.
 * ``import_blocks`` verifies the chain before any state changes and
   rolls back all or nothing on pool exhaustion (the allocators agree
   step for step); an engine rejects pages of another element size or
@@ -14,6 +20,7 @@
   snapshots still import.
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -21,12 +28,15 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from horovod_tpu.fleet.router import FleetRouter as JaxRouter
 from horovod_tpu.models.transformer import Transformer as JaxTransformer
 from horovod_tpu.models.transformer import TransformerConfig as JaxConfig
 from horovod_tpu.serving import BlockAllocator as JaxAllocator
 from horovod_tpu.serving import ServeConfig as JaxServeConfig
 from horovod_tpu.serving import ServingEngine as JaxEngine
+from horovod_tpu_torch.fleet.router import FleetRouter
 from horovod_tpu_torch.models import TransformerConfig, params_from_flax
+from horovod_tpu_torch.serving import engine as tengine
 from horovod_tpu_torch.serving import (
     PREFIX_HASH_ROOT, BlockAllocator, ServeConfig, ServingEngine,
 )
@@ -139,9 +149,10 @@ def test_export_matches_jax_field_for_field(exported):
 
 
 def test_bf16_pages_travel_as_uint16_bits():
-    """numpy has no bfloat16: the port's bf16 pages are uint16 arrays
-    of the reference's bits, with the reference's nbytes; a JAX bf16
-    snapshot (ml_dtypes pages) imports into the port's bf16 engine."""
+    """numpy has no bfloat16: the port's bf16 pages are ml_dtypes
+    bfloat16 arrays (the reference's page dtype) of the reference's
+    bits, with the reference's nbytes; a JAX bf16 snapshot (ml_dtypes
+    pages) imports into the port's bf16 engine."""
     jc, tc = _configs("bfloat16")
     model = JaxTransformer(jc)
     params = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32),
@@ -163,8 +174,7 @@ def test_bf16_pages_travel_as_uint16_bits():
     _same_fields(t_snap, j_snap)
     for (tk, tv), (jk, jv) in zip(t_snap["pages"], j_snap["pages"]):
         for t, j in ((tk, jk), (tv, jv)):
-            assert t.dtype == np.uint16 and np.asarray(j).dtype.name \
-                == "bfloat16"
+            assert t.dtype == np.asarray(j).dtype == ml_dtypes.bfloat16
             assert t.nbytes == np.asarray(j).nbytes
             assert t.tobytes() == np.asarray(j).tobytes()
     dst = ServingEngine(tc, sd, serve=ServeConfig(**serve), device="cpu")
@@ -330,3 +340,152 @@ def test_source_tag_names_sender_and_untagged_imports(models):
                        match=r"mismatch at block 0(?!.*from replica)"):
         ServingEngine(tc, sd, serve=serve, device="cpu").import_kv(bad)
     src.cancel(rid)
+
+
+# -- bf16 snapshots from the port into the JAX engine ------------------------
+
+BF16_SERVE = dict(SERVE, spec=True, spec_k=4)
+
+
+@pytest.fixture(scope="module")
+def bf16_models():
+    """bf16 configs and weights (seed 0, matrices scaled by 4 so that
+    the greedy streams vary instead of settling on one token)."""
+    jc, tc = _configs("bfloat16")
+    model = JaxTransformer(jc)
+    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+                        train=False)["params"]
+    params = jax.tree.map(lambda x: x * 4 if x.ndim > 1 else x, params)
+    sd = params_from_flax(jax.tree.map(np.asarray, params), tc, device="cpu")
+    return jc, tc, params, sd
+
+
+def _bits(pool):
+    """A pool's bf16 bits as uint16 numpy, from either package."""
+    if isinstance(pool, torch.Tensor):
+        return pool.view(torch.int16).numpy().view(np.uint16)
+    return np.array(pool).view(np.uint16)
+
+
+def _interrupted_export(tc, sd, serve, prompt):
+    src = ServingEngine(tc, sd, serve=ServeConfig(**serve), device="cpu")
+    rid = src.submit(prompt, max_new_tokens=TOTAL)
+    _interrupt(src, rid)
+    tokens, snap, _arr = src.export_requests()[rid]
+    return np.asarray(tokens[len(prompt):], np.int32), snap
+
+
+def _full_stream(tc, sd, serve, prompt):
+    eng = ServingEngine(tc, sd, serve=ServeConfig(**serve), device="cpu")
+    rid = eng.submit(prompt, max_new_tokens=TOTAL)
+    return eng.run()[rid]
+
+
+def test_bf16_port_snapshot_imports_into_jax_bit_equal(bf16_models):
+    """The speculative scenario: a bf16 port engine interrupted
+    mid-decode exports its chain; the JAX engine imports it, holds the
+    page bits exactly in its pool, and resumes to the port's
+    uninterrupted stream, its re-prefill served from the chain."""
+    jc, tc, params, sd = bf16_models
+    prompt = _prompt()
+    want = _full_stream(tc, sd, BF16_SERVE, prompt)
+    gen, snap = _interrupted_export(tc, sd, BF16_SERVE, prompt)
+    assert all(k.dtype == v.dtype == ml_dtypes.bfloat16
+               for k, v in snap["pages"])
+    dst = JaxEngine(jc, params, serve=JaxServeConfig(**BF16_SERVE))
+    assert dst.import_kv(snap) == len(snap["hashes"])
+    blocks, _ = dst.allocator.match_prefix(snap["tokens"],
+                                           max_blocks=len(snap["hashes"]))
+    assert len(blocks) == len(snap["hashes"])
+    k_bits, v_bits = _bits(dst.k_pool), _bits(dst.v_pool)
+    for (kp, vp), b in zip(snap["pages"], blocks):
+        assert k_bits[:, b].tobytes() == kp.tobytes()
+        assert v_bits[:, b].tobytes() == vp.tobytes()
+    dst.allocator.free(blocks)
+    rid = dst.submit(np.concatenate([prompt, gen]),
+                     max_new_tokens=TOTAL - gen.size)
+    out = dst.run()[rid]
+    assert dst.scheduler.prefix_hit_blocks >= len(snap["hashes"]) - 1
+    np.testing.assert_array_equal(np.concatenate([gen, out]), want)
+
+
+def test_bf16_handoff_into_jax_decode_tier():
+    """A prefill→decode router whose prefill tier is the port's bf16
+    engine and whose decode tier is the JAX package's: every handoff is
+    warm and every stream equals the all-JAX two-tier fleet's.  One
+    layer, so that both packages' prefills write the same K/V bits (a
+    deeper bf16 model's attention sums round differently, and its late
+    tokens may fork at near-ties) and the streams can only differ where
+    the import does."""
+    shape = dict(vocab_size=VOCAB, num_layers=1, num_heads=4,
+                 num_kv_heads=2, head_dim=8, max_seq_len=64)
+    jc = JaxConfig(dtype=jnp.bfloat16, **shape)
+    tc = TransformerConfig(dtype=torch.bfloat16, **shape)
+    params = JaxTransformer(jc).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+        train=False)["params"]
+    params = jax.tree.map(lambda x: x * 4 if x.ndim > 1 else x, params)
+    sd = params_from_flax(jax.tree.map(np.asarray, params), tc, device="cpu")
+
+    def jax_build(role="both"):
+        return JaxEngine(jc, params, serve=JaxServeConfig(**SERVE),
+                         role=role)
+
+    def build(role="both"):
+        if role == "prefill":
+            return ServingEngine(tc, sd, serve=ServeConfig(**SERVE),
+                                 device="cpu", role=role)
+        return jax_build(role)
+
+    rs = np.random.RandomState(31)
+    prompts = [rs.randint(1, VOCAB, size=n).astype(np.int32)
+               for n in (9, 13, 17, 21)]
+    streams = []
+    for router_cls, factory in ((FleetRouter, build),
+                                (JaxRouter, jax_build)):
+        router = router_cls(factory, replicas=1, prefill_replicas=1)
+        gids = [router.submit(p, 12) for p in prompts]
+        got = router.run_until_drained()
+        assert router.handoffs == {"warm": len(prompts), "cold": 0}
+        streams.append([np.asarray(got[g]) for g in gids])
+    assert {type(r.engine) for r in router.replicas} == {JaxEngine}
+    for i, (got, want) in enumerate(zip(*streams)):
+        np.testing.assert_array_equal(got, want, err_msg=f"request {i}")
+
+
+def test_bf16_pages_fall_back_to_uint16_without_ml_dtypes(bf16_models,
+                                                          monkeypatch):
+    """Where ml_dtypes is missing (the engine's guarded import found
+    none) bf16 pages are uint16 bits, and the port's own round trip
+    stays bit-equal and token-identical."""
+    _jc, tc, _params, sd = bf16_models
+    monkeypatch.setattr(tengine, "_BF16", None)
+    prompt = _prompt()
+    want = _full_stream(tc, sd, BF16_SERVE, prompt)
+    gen, snap = _interrupted_export(tc, sd, BF16_SERVE, prompt)
+    assert all(k.dtype == v.dtype == np.uint16 for k, v in snap["pages"])
+    dst = ServingEngine(tc, sd, serve=ServeConfig(**BF16_SERVE),
+                        device="cpu")
+    assert dst.import_kv(snap) == len(snap["hashes"])
+    blocks, _ = dst.allocator.match_prefix(snap["tokens"],
+                                           max_blocks=len(snap["hashes"]))
+    for (kp, vp), b in zip(snap["pages"], blocks):
+        assert _bits(dst.k_pool[:, b]).tobytes() == kp.tobytes()
+        assert _bits(dst.v_pool[:, b]).tobytes() == vp.tobytes()
+    dst.allocator.free(blocks)
+    rid = dst.submit(np.concatenate([prompt, gen]),
+                     max_new_tokens=TOTAL - gen.size)
+    np.testing.assert_array_equal(
+        np.concatenate([gen, dst.run()[rid]]), want)
+
+
+def test_engine_imports_without_ml_dtypes():
+    """The engine module imports on a machine without ml_dtypes (its
+    import is guarded) and then exports uint16 bits."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['ml_dtypes'] = None\n"
+            "from horovod_tpu_torch.serving import engine\n"
+            "assert engine._BF16 is None\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=str(__import__("pathlib").Path(__file__).parents[1]))

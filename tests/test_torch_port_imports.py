@@ -46,9 +46,9 @@ def test_no_jax_imports_anywhere_in_the_port():
 
 def test_port_imports_and_serves_with_jax_blocked():
     """Every module imports, the engine serves (plain, speculative, and
-    through a prefill→decode fleet) and training steps run (the
-    transformer's and the ResNet's) with jax, flax, optax and
-    horovod_tpu blocked outright."""
+    through a prefill→decode fleet), training steps run (the
+    transformer's and the ResNet's) and ring attention runs (world 1)
+    with jax, flax, optax and horovod_tpu blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -125,6 +125,14 @@ def test_port_imports_and_serves_with_jax_blocked():
         "g = fr.submit(np.arange(1, 10), 4)\n"
         "assert len(fr.run_until_drained()[g]) == 4\n"
         "assert fr.handoffs['warm'] == 1\n"
+        "from horovod_tpu_torch.parallel import (ring_attention,\n"
+        "    ring_flash_attention, ring_window_steps)\n"
+        "hvd.init(device='cpu')\n"
+        "rq = torch.randn(1, 8, 2, 8)\n"
+        "assert torch.equal(ring_flash_attention(rq, rq, rq),\n"
+        "    flash_attention.flash_attention(rq, rq, rq))\n"
+        "assert ring_window_steps(4, 8, True, 3) == 2\n"
+        "hvd.shutdown()\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
         "    for m, v in sys.modules.items() if v is not None)\n"
