@@ -204,11 +204,36 @@ if any fails:
    root runs whichever steps it has): every rank's losses equal, the
    overlapped step's bit-identical to the plain step's, ZeRO's within
    ZERO_LOSS_REL_TOL; step times and tokens/s; and the gradients'
-   rank-ordered allreduce against NCCL's own, in turns.
+   rank-ordered allreduce against NCCL's own, in turns;
+17. guard: the training phase's gpt_small twice from one seed, in turns,
+   through the unguarded step and ``data_parallel_train_step(guard=
+   True)`` feeding an ``IntegrityGuard`` (cadence 5), 10 steps: losses
+   and parameters bit-identical, every ``finite`` true, the diag digest
+   equal to ``host_digest`` of the post-reduction gradients at steps 3
+   and 7, 12 launches of each training kernel a step; the guard's
+   overhead (median and mean step time) and ``grad_diag``'s device and
+   host-enqueue time (run once under torch's sync debug mode: no host
+   sync); then a rollback at world 1 through ``fit_epoch`` (cadence 2,
+   checkpoints after steps 5-7, a parameter set to inf before step 7):
+   the check at step 8 trips, ``ckpt-7`` is discarded, ``IntegrityError``
+   is raised, and steps 7-10 re-run from ``ckpt-6`` to the unguarded
+   losses bit for bit;
+18. elastic: the same model through ``python -m horovod_tpu_torch.runner
+   --host-discovery-script`` (``localhost:2``, ``--min-np 1 --max-np
+   1``), 6 steps under ``hvd.elastic.run`` with a ``TpuState``
+   committing every step, uninterrupted, with ``training.step:raise``
+   at step 5 (``HorovodInternalError``: an exec-restart in place with
+   the memfd snapshot) and with ``elastic.commit:kill`` at step 5 (the
+   replacement worker auto-resumes from the step-3 checkpoint): both
+   faulted runs end with the uninterrupted losses and parameter digest
+   bit for bit, 12 launches of each training kernel every step; the
+   restart split (persist, snapshot bytes, reboot, restore) and the
+   kill's respawn-to-resume time.
 
 Each main path (serving, spec, disagg, training, overlap, zero, remat,
-resnet, pipeline, ring, ring4) is driven with the kernels' launch counts
-set to 0 just before it and read just after.  The card's
+resnet, pipeline, ring, ring4, guard, elastic) is driven with the
+kernels' launch counts set to 0 just before it and read just after (the
+elastic workers count in their own processes, per step).  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -220,10 +245,10 @@ backward, the simt ones at gpt_small's fp32 backward (their path: the
 fp32 training oracle),
 the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
 the sm90 forward launches summed over the serving, spec, disagg,
-training, overlap, zero and remat runs, the paged decode's over the
-serving, spec and disagg runs, dq and dkv over the training, overlap,
-zero and remat runs, the fused-norm launches over the resnet and
-pipeline runs; the six ``*_kv_offset`` entries (the forward, dq and
+training, overlap, zero, remat, guard and elastic runs, the paged
+decode's over the serving, spec and disagg runs, dq and dkv over the
+training, overlap, zero, remat, guard and elastic runs, the fused-norm
+launches over the resnet and pipeline runs; the six ``*_kv_offset`` entries (the forward, dq and
 dkv at a non-zero offset, each variant) at the ring's own past-block
 call at gpt_small's shard, their launches the ring phase's (and
 ring4's);
@@ -265,6 +290,19 @@ SEED = 1234
 
 def log(*a):
     print(*a, flush=True)
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+    except OSError:
+        return "nvidia-smi unavailable"
+    out = smi.stdout.strip()
+    return out.splitlines()[0] if out else "nvidia-smi unavailable"
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -3944,9 +3982,483 @@ def phase_ring4(device="cuda", preset="gpt_small", b=TRAIN_B, s_local=RING_S,
     return rec
 
 
+# -- phase 17: the integrity guard on gpt_small (one card) --------------------
+
+GUARD_STEPS = 10
+#: steps after which the guarded run's diag digest is held against the
+#: host digest of the post-reduction gradients
+GUARD_DIGEST_STEPS = (3, 7)
+#: the guarded run's cadence (checks at 5 and 10: the cadence check's
+#: host sync and param fingerprint are inside the timed steps)
+GUARD_CADENCE = 5
+#: the rollback run: cadence 2, checkpoints after steps 5-7, a parameter
+#: set to inf before step 7, the check at step 8 trips
+GUARD_TRIP_STEP = 7
+GUARD_ROLLBACK_CADENCE = 2
+
+
+def _train_model(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S):
+    """``(cfg, model, inputs, labels)``: on the card the training
+    phase's gpt_small (:func:`_gpt_small`); ``device="cpu"`` is the CPU
+    rehearsal (``preset``'s widths, fp32, a b x s batch)."""
+    if device == "cuda" and preset == "gpt_small" and (b, s) == (
+            TRAIN_B, TRAIN_S):
+        return _gpt_small()
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import models
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    cfg = getattr(models, preset)(dtype=dtype, attention_impl="flash")
+    model = models.Transformer(cfg, params=models.init_params(
+        cfg, torch.Generator(device).manual_seed(SEED), device=device,
+        param_dtype=torch.float32))
+    toks = torch.as_tensor(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, size=(b, s + 1)), dtype=torch.long, device=device)
+    return cfg, model, toks[:, :-1], toks[:, 1:]
+
+
+def _guard_env_clear():
+    """The rollback arms HVD_TPU_GUARD_* markers meant to cross an
+    exec-restart; none may reach a later phase's processes."""
+    for k in [k for k in os.environ if k.startswith("HVD_TPU_GUARD_")]:
+        del os.environ[k]
+
+
+def phase_guard(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S,
+                steps=GUARD_STEPS):
+    """The integrity guard on the training phase's gpt_small (B=8 x
+    S=2048, bf16 over fp32 masters, AdamW, flash attention, world 1 over
+    NCCL).
+
+    * Two models from the same seed train ``steps`` steps in turns on
+      the fixed batch: the unguarded ``data_parallel_train_step`` and the
+      guarded one (``guard=True``) whose diagnostics feed an
+      ``IntegrityGuard`` (cadence 5: its host sync, param fingerprint
+      and check run inside steps 5 and 10).  Losses and parameters must
+      be bit-identical; every ``finite`` true; after steps 3 and 7 the
+      diag digest equals ``host_digest`` of the post-reduction gradients
+      pulled to the host; 12 launches of each training kernel a step in
+      both.  The step times give the guard's overhead (median of the
+      steady steps, and the mean, checks included).
+    * Rollback at world 1: a third model through ``fit_epoch`` with a
+      guard of cadence 2 and checkpoints after steps 5, 6 and 7; the
+      phase sets one parameter (``layer_0.ln1.scale[0]``) to inf before
+      step 7, so the check at step 8 sees non-finite gradients: it must
+      discard ``ckpt-7`` (newer than the verified step 6) and raise
+      ``IntegrityError``.  ``restore_checkpoint`` then loads ``ckpt-6``
+      and steps 7-10 re-run to the unguarded run's losses bit for bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, guard, training
+
+    cuda = device == "cuda"
+    hvd.init(None if cuda else "cpu")
+    assert hvd.size() == 1
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def build(guarded):
+        cfg, model, x, y = _train_model(device, preset, b, s)
+        opt = _adamw(model.parameters())
+        state = training.replicate_state(
+            training.create_train_state(model, opt))
+        step = training.data_parallel_train_step(model, opt, guard=guarded)
+        return cfg, model, state, step, x, y
+
+    _reset_train_counts()
+    cfg, model_a, state_a, step_a, x, y = build(False)
+    _, model_b, state_b, step_b, _, _ = build(True)
+    g = guard.IntegrityGuard(enabled=True, cadence=GUARD_CADENCE, world=1)
+    losses_a, losses_b, finite, per_step = [], [], [], {"plain": [],
+                                                         "guarded": []}
+    times = {"plain": [], "guarded": []}
+    digest_checks = []
+    for i in range(1, steps + 1):
+        for tag in ("plain", "guarded"):
+            before = _train_counts()
+            sync()
+            t0 = time.perf_counter()
+            if tag == "plain":
+                state_a, loss = step_a(state_a, x, y)
+                losses_a.append(loss)
+            else:
+                state_b, loss, diag = step_b(state_b, x, y)
+                g.on_train_step(i, loss, diag, params=model_b)
+                losses_b.append(loss)
+                finite.append(diag["finite"])
+            sync()
+            times[tag].append(time.perf_counter() - t0)
+            per_step[tag].append(tuple(
+                a - c for a, c in zip(_train_counts(), before)))
+        if i in GUARD_DIGEST_STEPS:
+            t0 = time.perf_counter()
+            host = guard.host_digest([p.grad.cpu()
+                                      for p in model_b.parameters()])
+            dev = diag["digest"].cpu().numpy().astype(np.uint32)
+            digest_checks.append(dict(step=i, device=dev.tolist(),
+                                      host=host.tolist(),
+                                      host_s=time.perf_counter() - t0))
+            assert (dev == host).all(), (
+                f"step {i}: device digest {dev} != host digest {host}")
+    losses_a = [float(v) for v in losses_a]
+    losses_b = [float(v) for v in losses_b]
+    assert losses_a == losses_b, f"guarded losses {losses_b} != {losses_a}"
+    same = all(torch.equal(pa, pb) for pa, pb in zip(model_a.parameters(),
+                                                    model_b.parameters()))
+    assert same, "guarded parameters differ from the unguarded run's"
+    assert all(bool(f) for f in finite), "a guarded step was not finite"
+    assert g.last_verified_step == steps
+    if cuda:  # (the CPU rehearsal runs the kernels' plain versions)
+        _check_train_run(cfg, losses_a, per_step["plain"])
+        _check_train_run(cfg, losses_b, per_step["guarded"])
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in times.items()}
+    mean = {k: sum(v[1:]) / len(v[1:]) for k, v in times.items()}
+    grads = [p.grad for p in model_b.parameters()]
+    t0 = time.perf_counter()
+    guard.device_digest(grads).cpu()
+    digest_s = time.perf_counter() - t0
+    timing = {}
+    if cuda:  # the step's addition alone: device time, host enqueue time
+        fn = lambda: guard.grad_diag(grads)  # noqa: E731
+        # no host sync in it (torch's sync debug mode raises on one)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        timing["grad_diag_device_ms"] = device_ms(fn, reps=1)
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        timing["grad_diag_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+        sync()
+    n_words = sum(p.numel() for p in model_b.parameters())
+    del grads
+    del model_a, state_a, step_a, model_b, state_b, step_b
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- the rollback at world 1 ------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    try:
+        _, model_c, state_c, step_c, _, _ = build(True)
+        gc = guard.IntegrityGuard(enabled=True,
+                                  cadence=GUARD_ROLLBACK_CADENCE, world=1,
+                                  ckpt_dir=tmp)
+        losses_c = []
+
+        def one(save):
+            return training.fit_epoch(
+                step_c, state_c, [(x, y)], guard=gc,
+                checkpoint_dir=tmp if save else None, checkpoint_every=1)
+
+        for i in range(1, GUARD_TRIP_STEP):
+            state_c, loss = one(i >= GUARD_TRIP_STEP - 2)
+            losses_c.append(loss)
+        assert losses_c == losses_a[:GUARD_TRIP_STEP - 1], (
+            losses_c, losses_a)
+        with torch.no_grad():
+            dict(model_c.named_parameters())["layer_0.ln1.scale"][0] = \
+                float("inf")
+        state_c, _ = one(True)
+        ring_at_trip = sorted(os.listdir(tmp))
+        tripped = None
+        try:
+            one(True)
+        except guard.IntegrityError as e:
+            tripped = str(e)
+        assert tripped is not None, "the guard did not trip on inf gradients"
+        verified = gc.last_verified_step
+        ring = sorted(os.listdir(tmp))
+        want_ring = [f"ckpt-{i}" for i in range(GUARD_TRIP_STEP - 2,
+                                                GUARD_TRIP_STEP)]
+        assert verified == GUARD_TRIP_STEP - 1, verified
+        assert ring == want_ring, (ring, ring_at_trip)
+        state_c = checkpoint.restore_checkpoint(tmp, state_c)
+        assert state_c.step == GUARD_TRIP_STEP - 1
+        rerun = []
+        for _ in range(GUARD_TRIP_STEP, steps + 1):
+            state_c, loss = one(False)
+            rerun.append(loss)
+        assert rerun == losses_a[GUARD_TRIP_STEP - 1:], (rerun, losses_a)
+        assert gc.last_verified_step == steps
+        launches = _train_counts()
+        del model_c, state_c, step_c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _guard_env_clear()
+    hvd.shutdown()
+    if cuda:
+        torch.cuda.empty_cache()
+    rec = dict(
+        steps=steps, losses=losses_a, bit_identical=True,
+        step_s=times, step_s_median_steady=med, step_s_mean_steady=mean,
+        overhead_median=med["guarded"] / med["plain"] - 1.0,
+        overhead_mean=mean["guarded"] / mean["plain"] - 1.0,
+        cadence=GUARD_CADENCE, digest_words=n_words,
+        device_digest_s=digest_s, **timing, digest_checks=digest_checks,
+        rollback=dict(trip_step=GUARD_TRIP_STEP + 1,
+                      verified_step=verified, ring_at_trip=ring_at_trip,
+                      ring_after=ring, error=tripped[:160],
+                      rerun_losses=rerun),
+        launches=dict(zip(TRAIN_COUNTS, launches)))
+    log("  guard: " + json.dumps(rec))
+    log(f"  guard overhead ({card_line()}): median step "
+        f"{med['plain'] * 1e3:.2f} -> "
+        f"{med['guarded'] * 1e3:.2f} ms ({rec['overhead_median']:+.2%}), "
+        f"mean incl. cadence checks {mean['plain'] * 1e3:.2f} -> "
+        f"{mean['guarded'] * 1e3:.2f} ms ({rec['overhead_mean']:+.2%}); "
+        f"digest alone {digest_s * 1e3:.2f} ms over {n_words} words "
+        f"(device and enqueue ms: {json.dumps(timing)})")
+    return rec
+
+
+# -- phase 18: elastic training through the launcher (one card) ---------------
+
+ELASTIC_STEPS = 6
+#: the chaos rules fire at this (0-based) evaluation: step 5's attempt
+#: (training.step) or its commit (elastic.commit)
+ELASTIC_FAULT_AT = 4
+#: the kill run checkpoints every this many steps (the replacement
+#: resumes from the newest)
+ELASTIC_CKPT_EVERY = 3
+ELASTIC_TIMEOUT_S = 400
+
+ELASTIC_WORKER = r'''
+import json, os, sys, time
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import chaos, checkpoint, guard, training
+from horovod_tpu_torch.common.exceptions import HorovodInternalError
+from horovod_tpu_torch.elastic import worker as elastic_worker
+import chip_smoke as cs
+
+logdir, ckpt, device, preset = sys.argv[1:5]
+b, s, steps, every = map(int, sys.argv[5:9])
+t_boot = time.time()
+restarted = elastic_worker.ENV_RESTARTED in os.environ
+hvd.init(None if device == "cuda" else "cpu")
+wid = os.environ.get("HVD_TPU_ELASTIC_WORKER_ID", "na")
+
+
+def log(**kv):
+    kv["t"] = time.time()
+    with open(os.path.join(logdir, f"worker_{wid}.log"), "a") as f:
+        f.write(json.dumps(kv) + "\n")
+
+
+cfg, model, x, y = cs._train_model(device, preset, b, s)
+opt = cs._adamw(model.parameters())
+step = training.data_parallel_train_step(model, opt)
+ts = training.create_train_state(model, opt)
+state = hvd.elastic.TpuState(model=model, optimizer=opt, step=0, losses=[])
+state.enable_auto_resume(ckpt)
+log(event="boot", pid=os.getpid(), t_boot=t_boot, restarted=restarted)
+cs._reset_train_counts()
+
+
+@hvd.elastic.run
+def train(state):
+    log(event="resume", step=state.step,
+        restart=elastic_worker.last_restart_stats)
+    while state.step < steps:
+        ts.step = state.step
+        before = cs._train_counts()
+        try:
+            _, loss = training.fit_epoch(step, ts, [(x, y)])
+        except chaos.ChaosInjected as e:
+            # the injected fault stands for a collective that failed
+            # mid-step: the HorovodInternalError path
+            raise HorovodInternalError(str(e)) from e
+        counts = [a - c for a, c in zip(cs._train_counts(), before)]
+        state.losses = state.losses + [loss]
+        state.step += 1
+        state.commit()
+        if every and state.step % every == 0:
+            checkpoint.save_state_checkpoint(ckpt, state, state.step)
+        log(event="step", step=state.step, loss=loss, launches=counts)
+
+
+train(state)
+log(event="done", losses=state.losses,
+    digest=guard.device_digest(model).cpu().tolist(),
+    restart=elastic_worker.last_restart_stats)
+'''
+
+
+def _elastic_job(tmp, tag, chaos, device, preset, b, s, steps, every):
+    """One elastic job through ``python -m horovod_tpu_torch.runner
+    --host-discovery-script`` (the script prints ``localhost:2``;
+    ``--min-np 1 --max-np 1``: one worker, and a second slot to respawn
+    into when the first is blacklisted).  Returns its workers' events."""
+    run = os.path.join(tmp, tag)
+    logdir, ckpt = os.path.join(run, "logs"), os.path.join(run, "ckpt")
+    os.makedirs(logdir)
+    os.makedirs(ckpt)
+    script = os.path.join(run, "discover.sh")
+    with open(script, "w") as f:
+        f.write("#!/bin/sh\necho localhost:2\n")
+    os.chmod(script, 0o755)
+    worker = os.path.join(run, "worker.py")
+    with open(worker, "w") as f:
+        f.write(ELASTIC_WORKER)
+    env = dict(os.environ, PYTHONPATH=HERE, HVD_TPU_ELASTIC_TIMEOUT="180")
+    env.pop("HVD_TPU_CHAOS", None)
+    if chaos:
+        env["HVD_TPU_CHAOS"] = chaos.format(fuse=os.path.join(run, "fuse"))
+        env["HVD_TPU_CHAOS_SEED"] = str(SEED)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
+           "--host-discovery-script", script, "--min-np", "1",
+           "--max-np", "1", "--", sys.executable, worker, logdir, ckpt,
+           device, preset, str(b), str(s), str(steps), str(every)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, env=env, cwd=HERE, capture_output=True,
+                          text=True, timeout=ELASTIC_TIMEOUT_S)
+    wall = time.time() - t0
+    assert proc.returncode == 0, (
+        f"elastic {tag} job exited {proc.returncode}:\n"
+        f"{proc.stderr[-4000:]}")
+    events = []
+    for name in sorted(os.listdir(logdir)):
+        with open(os.path.join(logdir, name)) as f:
+            events += [dict(json.loads(line), worker=name) for line in f]
+    if chaos:
+        assert os.path.exists(os.path.join(run, "fuse")), (
+            f"elastic {tag}: the chaos rule never fired")
+    # where the job's wall time went: launch -> first worker's imports
+    # done, each boot -> resumed training, and the steps
+    boots = [e for e in events if e["event"] == "boot"]
+    resumes = [e for e in events if e["event"] == "resume"]
+    steps_t = [e["t"] for e in events if e["event"] == "step"]
+    split = dict(wall_s=wall, launch_to_boot_s=boots[0]["t_boot"] - t0,
+                 boot_to_resume_s=[r["t"] - b["t_boot"]
+                                   for b, r in zip(boots, resumes)],
+                 steps_s=max(steps_t) - resumes[0]["t"],
+                 after_last_step_s=t0 + wall - max(steps_t))
+    return events, split, proc.stderr
+
+
+def phase_elastic(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S,
+                  steps=ELASTIC_STEPS):
+    """Fault-tolerant training through the launcher on one card: the
+    worker trains the training phase's gpt_small for ``steps`` steps
+    under ``hvd.elastic.run`` with a ``TpuState`` (model, AdamW, step,
+    losses), committing every step, once uninterrupted and twice with a
+    fault at step 5:
+
+    * ``training.step:raise`` — the step's failure surfaces as
+      ``HorovodInternalError``; the worker rolls back to its last commit
+      and exec-restarts in place with the memfd snapshot (same PID),
+      rejoins through rendezvous and finishes;
+    * ``elastic.commit:kill`` — the worker dies at its commit; the
+      driver blacklists the slot, spawns a replacement in the spare
+      slot, which auto-resumes from the newest checkpoint (step 3) and
+      re-runs the rest.
+
+    Both faulted runs must end with the uninterrupted run's losses and
+    parameter digest, bit for bit, and every step must launch each
+    training kernel 12 times.  Prints the exec-restart's split (persist,
+    snapshot bytes, reboot, restore) and the kill run's respawn-to-
+    resume time."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        kw = dict(device=device, preset=preset, b=b, s=s, steps=steps)
+        plain, wall_p, _ = _elastic_job(tmp, "plain", None, every=0, **kw)
+        raised, wall_r, _ = _elastic_job(
+            tmp, "raise",
+            f"training.step:raise,at={ELASTIC_FAULT_AT},rank=0,fuse={{fuse}}",
+            every=0, **kw)
+        killed, wall_k, err_k = _elastic_job(
+            tmp, "kill",
+            f"elastic.commit:kill,at={ELASTIC_FAULT_AT},rank=0,fuse={{fuse}}",
+            every=ELASTIC_CKPT_EVERY, **kw)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def done(events):
+        d = [e for e in events if e["event"] == "done"]
+        assert len(d) == 1, f"expected one finisher: {d}"
+        return d[0]
+
+    from horovod_tpu_torch import models
+
+    ref = done(plain)
+    assert len(ref["losses"]) == steps
+    assert all(math.isfinite(v) for v in ref["losses"])
+    # every step on the card launches each training kernel once a layer
+    # (the CPU rehearsal runs their plain versions: no launches)
+    n = getattr(models, preset)().num_layers if device == "cuda" else 0
+    for tag, events in (("plain", plain), ("raise", raised),
+                        ("kill", killed)):
+        d = done(events)
+        assert d["losses"] == ref["losses"], (tag, d["losses"],
+                                              ref["losses"])
+        assert d["digest"] == ref["digest"], (tag, d["digest"],
+                                              ref["digest"])
+        for e in events:
+            if e["event"] == "step":
+                assert e["launches"][:3] == [n, n, n], (tag, e)
+    # the raise run: one exec-restart of the same process, carrying the
+    # memfd snapshot
+    boots = [e for e in raised if e["event"] == "boot"]
+    assert len(boots) == 2 and boots[0]["pid"] == boots[1]["pid"], boots
+    assert boots[1]["restarted"]
+    stats = done(raised)["restart"]
+    assert stats and stats["snapshot_bytes"] > 0, stats
+    resumed = [e for e in raised if e["event"] == "resume"]
+    assert resumed[-1]["step"] == ELASTIC_FAULT_AT, resumed
+    # the kill run: a replacement worker that auto-resumed from the
+    # checkpoint, with no exec-restart snapshot
+    workers = sorted({e["worker"] for e in killed})
+    assert len(workers) == 2, workers
+    repl = [e for e in killed if e["worker"] == workers[1]]
+    r_boot = next(e for e in repl if e["event"] == "boot")
+    r_resume = next(e for e in repl if e["event"] == "resume")
+    assert not r_boot["restarted"]
+    assert r_resume["step"] == ELASTIC_CKPT_EVERY, r_resume
+    last_before = max(e["t"] for e in killed
+                      if e["worker"] == workers[0] and e["event"] == "step")
+    assert "failed with exit code 137" in err_k, err_k[-2000:]
+    launches = [0] * len(TRAIN_COUNTS)
+    for events in (plain, raised, killed):
+        for e in events:
+            if e["event"] == "step":
+                launches = [a + c for a, c in zip(launches, e["launches"])]
+    rec = dict(steps=steps, losses=ref["losses"], digest=ref["digest"],
+               time_split=dict(plain=wall_p, raise_=wall_r, kill=wall_k),
+               restart=stats,
+               kill=dict(kill_to_boot_s=r_boot["t_boot"] - last_before,
+                         boot_to_resume_s=r_resume["t"] - r_boot["t_boot"],
+                         resumed_from=r_resume["step"]),
+               launches=dict(zip(TRAIN_COUNTS, launches)))
+    log("  elastic: " + json.dumps(rec))
+    log(f"  elastic restart ({card_line()}; training.step:raise, exec "
+        f"with memfd): "
+        f"persist {stats['persist_s']:.3f} s, snapshot "
+        f"{stats['snapshot_bytes']} bytes, reboot {stats['reboot_s']:.2f} s, "
+        f"restore {stats['restore_s']:.3f} s, total {stats['total_s']:.2f} s;"
+        f" kill -> replacement boot "
+        f"{rec['kill']['kill_to_boot_s']:.2f} s, boot -> resumed at step "
+        f"{r_resume['step']} {rec['kill']['boot_to_resume_s']:.2f} s")
+    return rec
+
+
 PHASES = ("kernels", "serving", "oracle", "spec", "disagg", "training",
           "overlap", "zero", "training_oracle", "remat", "resnet",
-          "resnet_oracle", "pipeline", "ring")
+          "resnet_oracle", "pipeline", "ring", "guard", "elastic")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -4156,11 +4668,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        "nvidia-smi unavailable"
+    card = card_line()
     log(f"device: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
@@ -4223,14 +4731,21 @@ def main(argv=None) -> int:
     if "ring" in phases:
         log("phase ring:")
         ring = phase_ring()
+    guard = elastic = None
+    if "guard" in phases:
+        log("phase guard:")
+        guard = phase_guard()
+    if "elastic" in phases:
+        log("phase elastic:")
+        elastic = phase_elastic()
     if "dp4" in phases:
         log("phase dp4:")
         phase_dp4(args.roots.split(","))
     if "ring4" in phases:
         log("phase ring4:")
         ring4 = phase_ring4()
-    runs = [r for r in (train, overlap, zero, remat) if r]
-    if runs:  # the training kernels ran on up to four main paths
+    runs = [r for r in (train, overlap, zero, remat, guard, elastic) if r]
+    if runs:  # the training kernels ran on up to six main paths
         train = dict(train or {}, launches={k: sum(
             r["launches"][k] for r in runs) for k in TRAIN_COUNTS})
     entries = (kernel_entries(kern, train_kern, serving, train,

@@ -28,7 +28,10 @@ and the loop around the step: the input pipeline (``data``), activation
 remat (``TransformerConfig.remat_policy``, ``ResNet(remat=True)``),
 crash-atomic checkpoints (``checkpoint``), the Keras-style callbacks
 (``callbacks``), fault injection (``chaos``) and
-``training.fit_epoch``.
+``training.fit_epoch``, and fault-tolerant training: the integrity
+guard (``guard``), elastic state and the elastic run loop
+(``elastic``), and the launcher with its elastic driver
+(``python -m horovod_tpu_torch.runner``).
 Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.
@@ -106,7 +109,7 @@ from .optim import (
     with_gradient_accumulation,
 )
 from .sync_batch_norm import SyncBatchNorm
-from . import callbacks, chaos, checkpoint, data, trace
+from . import callbacks, chaos, checkpoint, data, elastic, guard, trace
 
 __version__ = "0.2.0"
 

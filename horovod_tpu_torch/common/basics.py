@@ -12,7 +12,14 @@ Where the ranks come from:
 
 * a launcher's environment: torchrun's ``RANK``, ``WORLD_SIZE``,
   ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE`` (and ``MASTER_ADDR`` /
-  ``MASTER_PORT`` for its ``env://`` rendezvous);
+  ``MASTER_PORT`` for its ``env://`` rendezvous), or, where torchrun's
+  are absent, the JAX package's launcher variables that this package's
+  own launcher (``python -m horovod_tpu_torch.runner``) and the elastic
+  rendezvous export: ``HVD_TPU_COORDINATOR`` (``host:port`` of rank 0's
+  ``tcp://`` store), ``HVD_TPU_NUM_PROCESSES``, ``HVD_TPU_PROCESS_ID``,
+  ``HVD_TPU_LOCAL_RANK`` and ``HVD_TPU_LOCAL_SIZE``; under the elastic
+  driver (``HVD_TPU_ELASTIC=1``) :func:`init` first rendezvouses for
+  this epoch's assignment;
 * explicit ``rank=`` / ``size=`` / ``init_method=`` arguments (the tests
   pass a ``file://`` store in a temporary directory);
 * neither: a single process is world 1, and its rendezvous is a file
@@ -48,6 +55,11 @@ class _State:
         self.device: Optional[torch.device] = None
         self.backend: Optional[str] = None
         self.store_dir: Optional[str] = None
+        #: the ``device`` argument of the last init (an elastic reset
+        #: re-initializes in process with it)
+        self.device_arg = None
+        #: the process group is left to process exit (see _abandon)
+        self.abandoned = False
         self.process_set_registry = ProcessSetRegistry()
 
 
@@ -56,9 +68,14 @@ _state = _State()
 _TIMEOUT_S = 600.0
 
 
-def _env(name: str) -> Optional[int]:
-    raw = os.environ.get(name)
-    return int(raw) if raw not in (None, "") else None
+def _env(name: str, fallback: Optional[str] = None) -> Optional[int]:
+    """An integer from torchrun's variable ``name``, else from the JAX
+    package's launcher variable ``fallback``."""
+    for key in (name, fallback):
+        raw = os.environ.get(key) if key else None
+        if raw not in (None, ""):
+            return int(raw)
+    return None
 
 
 def init(device: Optional[Union[str, torch.device]] = None, *,
@@ -71,20 +88,33 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
     CUDA device is taken as given.  ``rank``/``size`` override the
     launcher's environment (the ranks then share one host);
     ``init_method`` is any ``torch.distributed`` URL (default:
-    ``env://`` under a launcher, a temporary file store for a lone
-    process)."""
+    ``env://`` under torchrun, ``tcp://<HVD_TPU_COORDINATOR>`` under
+    this package's launcher, a temporary file store for a lone
+    process).  Under the elastic driver the first call rendezvouses for
+    the epoch's assignment (``elastic.worker.ensure_assignment``)."""
     with _state.lock:
         if _state.initialized:
             return
-        launched = _env("WORLD_SIZE") is not None
-        size = size if size is not None else (_env("WORLD_SIZE") or 1)
-        rank = rank if rank is not None else (_env("RANK") or 0)
+        if rank is None and size is None and init_method is None:
+            from ..elastic.worker import ensure_assignment
+
+            ensure_assignment()
+        torchrun = _env("WORLD_SIZE") is not None
+        coordinator = os.environ.get("HVD_TPU_COORDINATOR")
+        launched = torchrun or _env("HVD_TPU_NUM_PROCESSES") is not None
+        size = size if size is not None else (
+            _env("WORLD_SIZE", "HVD_TPU_NUM_PROCESSES") or 1)
+        rank = rank if rank is not None else (
+            _env("RANK", "HVD_TPU_PROCESS_ID") or 0)
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside world of size {size}")
-        local_rank = _env("LOCAL_RANK")
+        local_rank = _env("LOCAL_RANK", "HVD_TPU_LOCAL_RANK")
         if local_rank is None:
             local_rank = 0 if launched else rank
-        local_size = _env("LOCAL_WORLD_SIZE") or size
+        local_size = _env("LOCAL_WORLD_SIZE", "HVD_TPU_LOCAL_SIZE") or size
+        if init_method is None and launched:
+            init_method = ("tcp://" + coordinator
+                           if coordinator and not torchrun else "env://")
         dev = _resolve(device, local_rank)
         backend = "gloo" if dev.type == "cpu" else "nccl"
         timeout = datetime.timedelta(seconds=_TIMEOUT_S)
@@ -97,6 +127,7 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
             dist.init_process_group(backend, init_method=init_method or
                                     "env://", rank=rank, world_size=size,
                                     timeout=timeout)
+        _state.device_arg = device
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.device, _state.backend = dev, backend
@@ -141,8 +172,9 @@ def shutdown() -> None:
         if not _state.initialized:
             return
         _state.process_set_registry.detach()
-        if dist.is_initialized():
+        if dist.is_initialized() and not _state.abandoned:
             dist.destroy_process_group()
+        _state.abandoned = False
         if _state.store_dir is not None:
             shutil.rmtree(_state.store_dir, ignore_errors=True)
             _state.store_dir = None
@@ -151,6 +183,15 @@ def shutdown() -> None:
 
 
 atexit.register(shutdown)
+
+
+def _abandon() -> None:
+    """Let :func:`shutdown` skip ``destroy_process_group``: a peer is in
+    exec-restart recovery and will never take part again
+    (``elastic.worker.clean_shutdown``), so the group is left to process
+    exit, which closes its sockets.  Rank and size stay readable."""
+    with _state.lock:
+        _state.abandoned = True
 
 
 def _require_init() -> _State:

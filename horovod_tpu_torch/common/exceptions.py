@@ -1,9 +1,9 @@
 """Framework exceptions (copied from ``horovod_tpu/common/exceptions.py``).
 
-``HorovodInternalError`` is raised when a collective fails mid-flight and
-is the signal an elastic loop catches to roll state back;
-``HostsUpdatedInterrupt`` announces a membership change with the state
-intact.  The elastic loop itself is not ported yet.
+``HorovodInternalError`` is raised when a collective fails mid-flight
+(``ops.collective_ops.peer_failures``) and is the signal the elastic loop
+(``elastic.run``) catches to roll state back; ``HostsUpdatedInterrupt``
+announces a membership change with the state intact.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """SLO-driven autoscaling and the prefix-affinity serving fleet.
 
-Port of ``horovod_tpu.fleet``'s serving side (docs/FLEET.md):
+Port of ``horovod_tpu.fleet`` (docs/FLEET.md):
 
 * :mod:`.policy` — target-tracking SLO controller and timed drill plans
   (:class:`TargetTrackingPolicy`, :class:`SchedulePolicy`);
@@ -9,14 +9,15 @@ Port of ``horovod_tpu.fleet``'s serving side (docs/FLEET.md):
   ``metrics.exposition.render`` writes);
 * :mod:`.router` / :mod:`.replica` — N in-process ``ServingEngine``
   replicas behind prefix-affinity placement, hedging, replica-loss
-  migration and the disaggregated prefill→decode tiers.
-
-Not ported yet (they need the elastic driver): ``preemption.py`` and
-the training-side :func:`maybe_training_autoscaler` (it raises).
+  migration and the disaggregated prefill→decode tiers;
+* :mod:`.preemption` — :class:`PreemptionGuard`: a SIGTERM notice
+  becomes a planned snapshot and a clean leave the elastic driver books
+  as a scale-down; :func:`maybe_training_autoscaler` is the elastic
+  driver's resize hook.
 
 Import shape as in the JAX package: ``policy``/``autoscaler`` are
 import-light; ``router``/``replica`` pull in the serving stack and are
-re-exported lazily here.
+re-exported lazily here, as is ``PreemptionGuard``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .policy import (  # noqa: F401
 
 __all__ = [
     "Autoscaler", "Decision", "EndpointSignalSource", "FleetRouter",
-    "SchedulePolicy", "ServingReplica", "Target", "TargetTrackingPolicy",
+    "PreemptionGuard", "SchedulePolicy", "ServingReplica", "Target", "TargetTrackingPolicy",
     "decode_policy_from_env", "histogram_quantile",
     "maybe_training_autoscaler", "parse_prom_text", "plan_from_env",
     "register_targets_endpoint", "snapshot_signals",
@@ -41,6 +42,7 @@ __all__ = [
 
 _LAZY = {
     "FleetRouter": ".router",
+    "PreemptionGuard": ".preemption",
     "ServingReplica": ".replica",
 }
 

@@ -1,17 +1,15 @@
 """The autoscale loop: policy decisions applied to a live fleet.
 
-Copied from ``horovod_tpu/fleet/autoscaler.py`` (stdlib only).  The
-training-side hook :func:`maybe_training_autoscaler` needs the elastic
-driver, which is not ported yet: it raises.
+Copied from ``horovod_tpu/fleet/autoscaler.py`` (stdlib only).
 
 One :class:`Autoscaler` closes the loop for either fleet kind:
 
-* **training** — the elastic driver passes
+* **training** — the elastic driver
+  (``runner/elastic_driver.py``) builds it through
+  :func:`maybe_training_autoscaler` with
   ``apply_fn=driver.request_world_size`` (the resize entry
   point): the decision lands as a planned membership change at the
-  next epoch boundary (in the JAX package; the port has no elastic
-  driver yet, so :func:`maybe_training_autoscaler` raises); SLO mode
-  takes signals from
+  next epoch boundary; SLO mode takes signals from
   worker metrics endpoints (:class:`EndpointSignalSource`, the
   scrape surface) or from ``cluster_snapshot()`` dicts the training
   loop already produces (:func:`.policy.snapshot_signals`).
@@ -333,10 +331,34 @@ def register_targets_endpoint(policy, name: str = "fleet/targets") -> None:
 def maybe_training_autoscaler(request_world_size, current_fn,
                               *, min_size: int, max_size: Optional[int],
                               ) -> Optional[Autoscaler]:
-    """The elastic driver's init hook in the JAX package (build a
-    training autoscaler from ``HVD_TPU_FLEET_PLAN`` or the SLO knobs).
-    The port has no elastic driver (``elastic/``) to resize a training
-    world through yet, so this raises."""
-    raise NotImplementedError(
-        "maybe_training_autoscaler: the elastic driver (elastic/) it "
-        "resizes training worlds through is not ported yet")
+    """The elastic driver's init hook
+    (``runner/elastic_driver.py``): build a training autoscaler from
+    the environment, or None when nothing opts in.
+
+    ``HVD_TPU_FLEET_PLAN`` (a timed drill plan) wins; otherwise any
+    armed ``HVD_TPU_FLEET_*_SLO``/``_FLOOR`` target plus
+    ``HVD_TPU_FLEET_SCRAPE`` (comma-separated worker metrics
+    endpoints) arms the SLO controller.  Driver min/max-np bound the
+    policy either way."""
+    import os
+
+    from .policy import TargetTrackingPolicy
+
+    hi = max_size if max_size is not None else 64
+    plan = plan_from_env()
+    if plan is not None:
+        return Autoscaler(plan, request_world_size,
+                          current_fn=current_fn, kind="train")
+    policy = TargetTrackingPolicy.from_env(min_size=min_size, max_size=hi)
+    if not policy.targets():
+        return None
+    urls = [u for u in os.environ.get(ENV_SCRAPE, "").split(",")
+            if u.strip()]
+    if not urls:
+        get_logger().warning(
+            "fleet: SLO targets armed but HVD_TPU_FLEET_SCRAPE is empty "
+            "— the training autoscaler has no signal source; not started")
+        return None
+    register_targets_endpoint(policy)
+    return Autoscaler(policy, request_world_size, current_fn=current_fn,
+                      signals_fn=EndpointSignalSource(urls), kind="train")

@@ -5,7 +5,8 @@ horovod/torch/functions.py).  As in the reference's PyTorch flavour, the
 parameter and optimizer-state broadcasts work **in place** on the
 caller's tensors (the JAX package returns new pytrees because its arrays
 are immutable), fused into per-dtype buckets so a model's hundreds of
-tensors take a handful of collectives.
+tensors take a handful of collectives.  A dead peer raises
+``HorovodInternalError`` (``collective_ops.peer_failures``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.distributed as dist
 
 from .common import basics
+from .ops.collective_ops import peer_failures
 from .ops.fusion import FusionPlan, fuse, fusion_threshold, unfuse
 
 
@@ -43,8 +45,9 @@ def _broadcast_inplace(tensors: List[torch.Tensor], root_rank: int) -> None:
         # (torch keeps an optimizer's step counts on the CPU) ride along
         plan = FusionPlan(tensors, fusion_threshold())
         bufs = fuse([t.to(dev) for t in tensors], plan)
-        for buf in bufs:
-            dist.broadcast(buf, src=root_rank)
+        with peer_failures():
+            for buf in bufs:
+                dist.broadcast(buf, src=root_rank)
         for t, new in zip(tensors, unfuse(bufs, plan)):
             t.copy_(new)
 
@@ -123,7 +126,8 @@ def broadcast_object(obj: Any, root_rank: int = 0, name=None) -> Any:
     if basics.size() == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=root_rank)
+    with peer_failures():
+        dist.broadcast_object_list(box, src=root_rank)
     return box[0]
 
 
@@ -133,5 +137,6 @@ def allgather_object(obj: Any, name=None) -> list:
     if basics.size() == 1:
         return [obj]
     out = [None] * basics.size()
-    dist.all_gather_object(out, obj)
+    with peer_failures():
+        dist.all_gather_object(out, obj)
     return out

@@ -3,10 +3,11 @@
 Copied from ``horovod_tpu/metrics/instruments.py``: the instruments the
 serving slice (speculative decoding, KV migration and the fleet
 router included), the overlapped optimizer, ZeRO, the input pipeline,
-the training loop, the chaos engine, retries and the flight recorder
+the training loop, the integrity guard, the elastic driver and worker,
+preemption notices, the chaos engine, retries and the flight recorder
 book, under the same names, label sets and buckets (the catalogue in
-docs/METRICS.md describes them).  The collective, guard and elastic
-instruments arrive with the slices that book them.
+docs/METRICS.md describes them).  The collective instruments arrive
+with the slice that books them.
 """
 
 from __future__ import annotations
@@ -270,6 +271,13 @@ FLEET_ROUTER_P99_TTFT = gauge(
     "Sliding-window p99 time-to-first-token observed by the fleet router",
 )
 
+#: Preemption notices honored: SIGTERM grace -> planned snapshot ->
+#: clean leave (fleet/preemption.py; the chaos ``fleet.preempt`` site).
+FLEET_PREEMPTIONS = counter(
+    "hvd_tpu_fleet_preemptions_total",
+    "Preemption notices this worker honored with a planned leave",
+)
+
 #: Replicas the router marked suspect (ejected from placement, work
 #: re-routed) after ``HVD_TPU_FLEET_REPLICA_ERRORS`` consecutive
 #: submit/step errors or a healthz stall trip.
@@ -321,6 +329,98 @@ OPTIM_AG_BYTES = counter(
 OPTIM_STATE_SHARD_BYTES = gauge(
     "hvd_tpu_optim_state_shard_bytes",
     "Sharded optimizer-state bytes held by this rank (ZeRO partition)",
+)
+
+# -- integrity guard (guard.py — docs/FAULT_TOLERANCE.md, silent corruption) -
+
+#: Detector evaluations at cadence, by check kind (finite sentinel /
+#: EMA loss spike / cross-rank digest agreement).
+GUARD_CHECKS = counter(
+    "hvd_tpu_guard_checks_total",
+    "Integrity-guard detector evaluations, by check kind",
+    ["check"],  # finite / spike / digest
+)
+
+#: Detector trips — a check that found something wrong, by kind.
+GUARD_TRIPS = counter(
+    "hvd_tpu_guard_trips_total",
+    "Integrity-guard detector trips (corruption signals), by check kind",
+    ["check"],  # finite / spike / digest
+)
+
+#: Attribution outcomes after a digest mismatch: ``self`` = this rank
+#: was named corrupt (quarantine path), ``peer`` = another rank was,
+#: ``unattributed`` = no majority and no recompute vote (rollback-only).
+GUARD_ATTRIBUTIONS = counter(
+    "hvd_tpu_guard_attributions_total",
+    "Corruption attribution outcomes after a cross-rank digest mismatch",
+    ["outcome"],  # self / peer / unattributed
+)
+
+#: Rollbacks to the last verified checkpoint (poisoned-window discards).
+GUARD_ROLLBACKS = counter(
+    "hvd_tpu_guard_rollbacks_total",
+    "Auto-rollbacks to the last integrity-verified checkpoint",
+)
+
+#: Newest step whose cross-rank agreement check passed — checkpoints at
+#: or before it are trustable rollback targets.
+GUARD_LAST_VERIFIED = gauge(
+    "hvd_tpu_guard_last_verified_step",
+    "Newest training step that passed the cross-rank integrity check",
+)
+
+#: Hosts the elastic driver quarantined after an integrity attribution
+#: (every slot of the attributed worker's host leaves the spawn pool).
+GUARD_QUARANTINES = counter(
+    "hvd_tpu_guard_quarantined_hosts_total",
+    "Hosts quarantined by the elastic driver after integrity attribution",
+)
+
+# -- elastic (runner/elastic_driver.py, elastic/worker.py) -------------------
+
+ELASTIC_WORLD_SIZE = gauge(
+    "hvd_tpu_elastic_world_size",
+    "Member processes of the current elastic epoch",
+)
+ELASTIC_EPOCH = gauge(
+    "hvd_tpu_elastic_epoch",
+    "Current elastic rendezvous epoch",
+)
+ELASTIC_RENDEZVOUS = counter(
+    "hvd_tpu_elastic_rendezvous_total",
+    "Completed rendezvous epochs handed out by the driver",
+)
+ELASTIC_SPAWNS = counter(
+    "hvd_tpu_elastic_workers_spawned_total",
+    "Worker processes spawned by the elastic driver",
+)
+ELASTIC_FAILURES = counter(
+    "hvd_tpu_elastic_worker_failures_total",
+    "Worker processes that exited non-zero (slot blacklisted)",
+)
+ELASTIC_RESTARTS = counter(
+    "hvd_tpu_elastic_restarts_total",
+    "Exec-restarts this worker performed (planned + failure recovery)",
+)
+ELASTIC_RESTART_SECONDS = gauge(
+    "hvd_tpu_elastic_last_restart_seconds",
+    "Cost split of this worker's most recent exec-restart",
+    ["phase"],  # persist / reboot / restore / total
+)
+ELASTIC_SNAPSHOT_BYTES = gauge(
+    "hvd_tpu_elastic_last_snapshot_bytes",
+    "Serialized state bytes carried across the last exec-restart",
+)
+
+#: Wall time from fault detection to training resumed (filled by the
+#: elastic worker: restart total; and by auto-resume restores).
+RECOVERY_SECONDS = gauge(
+    "hvd_tpu_recovery_seconds",
+    "Wall time of the most recent failure recovery, by phase",
+    # restart / auto_resume / planned (preemption leave) /
+    # rollback (guard: corruption detection -> post-boot verified resume)
+    ["phase"],
 )
 
 # -- fault injection and the training loop ------------------------------------

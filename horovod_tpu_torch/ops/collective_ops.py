@@ -40,10 +40,18 @@ were (the ``spmd_ops`` names stay queued in ROADMAP).
   says whether it is done.
 * ``join()`` returns the rank at world 1 and raises across processes,
   as the reference does without its native controller (ROADMAP).
+* A backend failure while an op completes — a peer died mid-collective
+  (gloo: the closed connection; NCCL: ``DistBackendError``) — raises
+  :class:`~..common.exceptions.HorovodInternalError`, the signal the
+  elastic loop catches to roll its state back (reference: NCCL abort →
+  HorovodInternalError; ``horovod_tpu/ops/engine.py`` ``_run``).  NCCL
+  does not notice a dead peer by itself: a survivor blocks until the
+  elastic worker's failure watchdog exec-restarts it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -51,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import basics
-from ..common.exceptions import ProcessSetError
+from ..common.exceptions import HorovodInternalError, ProcessSetError
 from .fusion import FusionPlan, fuse, fusion_threshold, unfuse
 from .reduce_ops import Average, ReduceOp, Sum
 
@@ -61,6 +69,30 @@ _all_gather_flat = getattr(dist, "all_gather_single",
                            dist.all_gather_into_tensor)
 _reduce_scatter_flat_op = getattr(dist, "reduce_scatter_single",
                                   dist.reduce_scatter_tensor)
+
+#: torch.distributed's own failure types (every one a RuntimeError)
+_DIST_ERRORS = tuple(getattr(dist, n) for n in (
+    "DistBackendError", "DistNetworkError", "DistStoreError")
+    if hasattr(dist, n))
+#: what gloo's plain RuntimeError says when a peer is gone
+_PEER_LOST = ("Connection closed by peer", "Connection reset by peer",
+              "Broken pipe", "Connection refused", "Timed out")
+
+
+@contextlib.contextmanager
+def peer_failures():
+    """Turn a backend failure raised inside the block (a dead peer) into
+    :class:`HorovodInternalError`; any other error passes unchanged."""
+    try:
+        yield
+    except HorovodInternalError:
+        raise
+    except RuntimeError as e:
+        if isinstance(e, _DIST_ERRORS) or any(m in str(e)
+                                              for m in _PEER_LOST):
+            raise HorovodInternalError(str(e)) from e
+        raise
+
 
 _DIST_OP = {ReduceOp.SUM: dist.ReduceOp.SUM,
             ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -134,9 +166,10 @@ class Handle:
 
     def wait(self) -> Any:
         if self._finish is not None:
-            for w in self._works:
-                w.wait()
-            self._value = self._finish()
+            with peer_failures():
+                for w in self._works:
+                    w.wait()
+                self._value = self._finish()
             self._finish = None
         return self._value
 
@@ -586,10 +619,11 @@ def barrier(process_set=None) -> None:
     horovod_barrier)."""
     st = basics._require_init()
     group, _, _ = _scope(process_set)
-    if st.backend == "nccl":
-        dist.barrier(group=group, device_ids=[st.device.index])
-    else:
-        dist.barrier(group=group)
+    with peer_failures():
+        if st.backend == "nccl":
+            dist.barrier(group=group, device_ids=[st.device.index])
+        else:
+            dist.barrier(group=group)
 
 
 def join() -> int:

@@ -570,9 +570,12 @@ class ZeroDistributedOptimizer(_Wrapper):
         self._step(reduce=True)
         return loss
 
-    def _step(self, reduce: bool) -> None:
+    def _step(self, reduce: bool, updates: Optional[list] = None) -> None:
         """Reduce (or, with ``reduce=False``, take the already reduced
-        ``.grad``), step the shards, gather them into the parameters."""
+        ``.grad``), step the shards, gather them into the parameters.
+        A list ``updates`` receives each parameter's update (new minus
+        old value, after the allgather) in parameter order: the
+        integrity guard's agreement object."""
         if not self.sharded:
             if reduce:
                 for ps in self._groups:
@@ -580,7 +583,12 @@ class ZeroDistributedOptimizer(_Wrapper):
                             self._grads(ps), self.op,
                             process_set=self.process_set)):
                         p.grad = g
+            old = (None if updates is None else
+                   [p.detach().clone() for p in self._flat_params])
             self.optimizer.step()
+            if updates is not None:
+                updates.extend(p.detach() - o
+                               for p, o in zip(self._flat_params, old))
             return
         for plan, ps, shards in zip(self.plans, self._groups, self._shards):
             if reduce:
@@ -610,5 +618,7 @@ class ZeroDistributedOptimizer(_Wrapper):
                     full.append(buf)
                     s.grad = None
                 for p, v in zip(ps, plan.unflatten(full)):
+                    if updates is not None:
+                        updates.append(v - p)
                     p.copy_(v)
         _metrics.OPTIM_STATE_SHARD_BYTES.set(state_bytes(self.optimizer.state))

@@ -36,8 +36,8 @@ __all__ = [
 ]
 
 #: Span/event sites the port records (the serving, fleet, training,
-#: input pipeline, checkpoint, chaos and overlap subset of the JAX
-#: package's catalogue, same names).
+#: input pipeline, checkpoint, chaos, overlap, guard and elastic subset
+#: of the JAX package's catalogue, same names).
 SITES = (
     "train.step",          # one training step (fit_epoch; global step)
     "data.wait",           # consumer wait on the prefetch queue
@@ -60,6 +60,9 @@ SITES = (
     "fleet.scale",         # autoscaler applied a scale decision (instant)
     "overlap.bucket",      # one gradient bucket's collective call
     "overlap.autotune",    # one autotuner trial scored (instant)
+    "fleet.preempt",       # preemption notice handled (instant)
+    "guard.exchange",      # cross-rank digest/vote exchange (cadence)
+    "elastic.restart",     # exec-restart about to replace the image
 )
 
 ENV_TRACE = "HVD_TPU_TRACE"

@@ -11,11 +11,12 @@ the state carries them and the step count.
 
 ``overlap=True`` launches each gradient bucket's allreduce from the
 backward's hooks (``optim.DistributedOptimizer``'s machinery), and
-:func:`zero_train_setup` builds the ZeRO stage-1 trainer.
-:func:`fit_epoch` drives an epoch from a loader (``data.DataLoader``)
-with periodic crash-atomic checkpoints (:mod:`.checkpoint`).  Not
-ported yet (queued in ROADMAP.md): the integrity guard (``guard=``) and
-two-level ZeRO (``hierarchical=``, ``dcn_compression=``).
+:func:`zero_train_setup` builds the ZeRO stage-1 trainer.  ``guard=True``
+makes either step also return the integrity guard's on-device
+diagnostics (:mod:`.guard`).  :func:`fit_epoch` drives an epoch from a
+loader (``data.DataLoader``) with periodic crash-atomic checkpoints
+(:mod:`.checkpoint`) and feeds an armed guard.  Not ported yet (queued
+in ROADMAP.md): two-level ZeRO (``hierarchical=``, ``dcn_compression=``).
 """
 
 from __future__ import annotations
@@ -28,12 +29,22 @@ import torch
 from . import chaos as _chaos
 from . import checkpoint as _checkpoint
 from . import trace
+from .common.retry import env_int
 from .functions import broadcast_optimizer_state, broadcast_parameters
+from .guard import grad_diag
 from .models.resnet import running_stats
 from .ops import collective_ops
 from .ops.reduce_ops import Average, ReduceOp
 from .optim import ZeroDistributedOptimizer, _BucketReducer
 from .utils.logging import set_log_context
+
+
+def _resolve_guard(guard: Optional[bool]) -> bool:
+    """``guard=None`` defers to ``HVD_TPU_GUARD`` (the JAX package's
+    spelling)."""
+    if guard is None:
+        return bool(env_int("HVD_TPU_GUARD", 0))
+    return bool(guard)
 
 
 @dataclasses.dataclass
@@ -97,7 +108,8 @@ def _average_stats(stats) -> None:
 def data_parallel_train_step(model: torch.nn.Module, optimizer,
                              loss_fn: Callable = softmax_cross_entropy,
                              op: ReduceOp = Average, overlap: bool = False,
-                             bucket_bytes: Optional[int] = None) -> Callable:
+                             bucket_bytes: Optional[int] = None,
+                             guard: Optional[bool] = None) -> Callable:
     """The data-parallel train step:
     ``step(state, inputs, labels) -> (state, loss)``.
 
@@ -125,7 +137,17 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
     ranks after the update (replicas see different batches), in one
     grouped allreduce, as the JAX step averages its ``batch_stats``.
     The step's reducer is ``step.reducer`` (its ``schedule`` and its
-    ``last_launches``)."""
+    ``last_launches``).
+
+    ``guard=True`` (``None`` = the ``HVD_TPU_GUARD`` flag) makes the step
+    also return the silent-corruption diagnostics,
+    ``step(state, x, y) -> (state, loss, diag)``:
+    :func:`~.guard.step_diag`'s ``finite`` over the loss and the
+    POST-reduction gradients and ``digest`` over those gradients, both
+    tensors on the device (no host sync).  They only read the
+    gradients: state and loss stay bit-identical to the unguarded step,
+    and no collective is added."""
+    guard = _resolve_guard(guard)
     stats = running_stats(model)
     if overlap:
         _check_overlap(op, stats, model)
@@ -142,10 +164,16 @@ def data_parallel_train_step(model: torch.nn.Module, optimizer,
         loss = loss_fn(model(inputs), labels)
         reducer.backward(loss)
         reducer.synchronize()
+        if guard:
+            digest, finite = grad_diag([p.grad for p in reducer.params])
         optimizer.step()
         _average_stats(stats)
         loss = collective_ops.allreduce(loss.detach(), op=Average)
-        return dataclasses.replace(state, step=state.step + 1), loss
+        new_state = dataclasses.replace(state, step=state.step + 1)
+        if guard:
+            return new_state, loss, {
+                "finite": finite & torch.isfinite(loss), "digest": digest}
+        return new_state, loss
 
     step.reducer = reducer
     return step
@@ -155,7 +183,8 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
                      loss_fn: Callable = softmax_cross_entropy,
                      op: ReduceOp = Average, hierarchical: bool = False,
                      dcn_compression=None, overlap: bool = False,
-                     bucket_bytes: Optional[int] = None):
+                     bucket_bytes: Optional[int] = None,
+                     guard: Optional[bool] = None):
     """Build a ZeRO stage-1 data-parallel trainer: ``(state, step)``.
 
     The sharded sibling of :func:`create_train_state` +
@@ -176,7 +205,19 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
     and ``dcn_compression`` need the two-level collectives, which are
     not ported.  The JAX version also
     returns the optimizer state's sharding specs; the port has none to
-    return."""
+    return.
+
+    ``guard=True`` (``None`` = ``HVD_TPU_GUARD``) adds the diagnostics
+    as a third step output, from REPLICATED values only, as the JAX
+    step's: the digest and the finite sentinel over the POST-allgather
+    update deltas (new minus old parameters, identical on every rank
+    after the allgather — the cross-rank agreement object) and the mean
+    loss.  Per-rank intermediates (local gradients, reduce-scattered
+    shards) differ across ranks by design; a non-finite shard still
+    reaches the deltas through the inner update the same step.  State
+    and loss stay bit-identical to the unguarded step; no collective is
+    added."""
+    guard = _resolve_guard(guard)
     broadcast_parameters(model, 0)  # the JAX version's state starts equal
     zopt = ZeroDistributedOptimizer(inner_optimizer, op=op,
                                     hierarchical=hierarchical,
@@ -196,16 +237,22 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
                              "optimizer")
         zopt.zero_grad(set_to_none=True)
         loss = loss_fn(model(inputs), labels)
+        updates = [] if guard else None
         if reducer is None:
             loss.backward()
-            zopt.step()
+            zopt._step(reduce=True, updates=updates)
         else:
             reducer.backward(loss)
             reducer.synchronize()
-            zopt._step(reduce=False)
+            zopt._step(reduce=False, updates=updates)
         _average_stats(stats)
         loss = collective_ops.allreduce(loss.detach(), op=Average)
-        return dataclasses.replace(state, step=state.step + 1), loss
+        new_state = dataclasses.replace(state, step=state.step + 1)
+        if guard:
+            digest, finite = grad_diag(updates)
+            return new_state, loss, {
+                "finite": finite & torch.isfinite(loss), "digest": digest}
+        return new_state, loss
 
     step.reducer = reducer
     return TrainState(step=0, model=model, optimizer=zopt), step
@@ -231,23 +278,35 @@ def fit_epoch(step: Callable, state: TrainState, loader,
     With ``checkpoint_dir`` and ``checkpoint_every`` set, rank 0 writes
     a crash-atomic checkpoint every ``checkpoint_every`` batches
     (:func:`~.checkpoint.save_checkpoint` keyed by ``state.step``),
-    keeping the newest ``checkpoint_keep`` (default 3); pair it with
+    keeping the newest ``checkpoint_keep``; pair it with
     :func:`~.checkpoint.restore_checkpoint` before training so a
-    restarted job resumes.  ``guard`` (the integrity guard) is not
-    ported yet and raises.
+    restarted job resumes.
+
+    ``guard`` takes an armed :class:`~.guard.IntegrityGuard` when
+    ``step`` was built with ``guard=True``: each step's on-device
+    diagnostics feed the guard without a host sync, numbered by the
+    global step (``state.step``, the checkpoints' key), and on cadence
+    steps the guard performs its ONE bounded sync (window + loss +
+    param fingerprint of ``state.model``), the cross-rank agreement
+    check and the response — :class:`~.guard.IntegrityError` on
+    detected corruption in non-elastic runs (reload a verified
+    checkpoint), the quarantine/rollback restart path under the elastic
+    driver.  ``checkpoint_keep`` defaults to 3, and to
+    ``max(3, 2·guard.cadence)`` with a guard armed: rollback discards
+    every checkpoint newer than the last verified step, so a ring
+    shallower than the cadence could be emptied.
 
     Returns ``(state, last_loss)`` with the loss fetched to the host
     (the end-of-epoch sync point; ``None`` for an empty loader)."""
-    if guard is not None:
-        raise NotImplementedError(
-            "fit_epoch(guard=...): the integrity guard (guard.py) is not "
-            "ported yet; queued in ROADMAP.md next to elastic")
     if epoch is not None and hasattr(loader, "set_epoch"):
         loader.set_epoch(epoch)
     if checkpoint_keep is None:
-        checkpoint_keep = 3
+        checkpoint_keep = (max(3, 2 * guard.cadence)
+                           if guard is not None
+                           and getattr(guard, "enabled", False) else 3)
     loss = None
     batches = 0
+    guard_base = None
     tracing = trace.enabled()
     for inputs, labels in loader:
         if _chaos.active:
@@ -257,9 +316,22 @@ def fit_epoch(step: Callable, state: TrainState, loader,
             set_log_context(step=step_no)
             with trace.span("train.step", step=step_no,
                             epoch=-1 if epoch is None else epoch):
-                state, loss = step(state, inputs, labels)
+                out = step(state, inputs, labels)
         else:
-            state, loss = step(state, inputs, labels)
+            out = step(state, inputs, labels)
+        if len(out) == 3:
+            state, loss, diag = out
+            if guard is not None:
+                if guard_base is None:
+                    # the guard numbers steps GLOBALLY (state.step):
+                    # checkpoints are keyed by it, so rollback's
+                    # discard_newer_than and the exchange keys share the
+                    # numbering across epochs and resumes
+                    guard_base = state.step - batches - 1
+                guard.on_train_step(guard_base + batches + 1, loss, diag,
+                                    params=state.model)
+        else:
+            state, loss = out
         batches += 1
         if (checkpoint_dir and checkpoint_every
                 and batches % checkpoint_every == 0):

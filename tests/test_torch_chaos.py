@@ -186,5 +186,23 @@ def test_data_prefetch_site_reraises_on_consumer():
 
 
 def test_fit_epoch_guard_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        training.fit_epoch(lambda s, x, y: (s, 0.0), None, [], guard=object())
+    """fit_epoch takes a guard now (it used to raise): a step's
+    diagnostics feed it, numbered by the global step, and an armed
+    guard sizes the checkpoint ring to max(3, 2·cadence)."""
+    from horovod_tpu_torch.guard import IntegrityGuard
+
+    class _State:
+        step = 0
+        model = torch.nn.Linear(2, 2)
+
+    def step(s, x, y):
+        s.step += 1
+        return s, torch.tensor(1.0), {"finite": torch.tensor(True),
+                                      "digest": torch.zeros(2,
+                                                            dtype=torch.int64)}
+
+    g = IntegrityGuard(cadence=2, world=1)
+    state, loss = training.fit_epoch(step, _State(), [(None, None)] * 4,
+                                     guard=g)
+    assert loss == 1.0 and state.step == 4
+    assert g.last_verified_step == 4

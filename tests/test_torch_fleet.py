@@ -234,10 +234,22 @@ def test_trace_sites_cover_every_recorded_site():
     assert set(ttrace.SITES) <= set(jtrace.SITES)
 
 
-def test_training_autoscaler_waits_for_elastic():
-    with pytest.raises(NotImplementedError, match="elastic"):
-        maybe_training_autoscaler(lambda n: n, lambda: 2, min_size=1,
-                                  max_size=4)
+def test_training_autoscaler_waits_for_elastic(monkeypatch):
+    """The elastic driver's resize hook (it raised before the driver was
+    ported): nothing armed -> None; a drill plan -> a schedule
+    autoscaler; SLO targets without a scrape source -> None."""
+    monkeypatch.delenv("HVD_TPU_FLEET_PLAN", raising=False)
+    assert maybe_training_autoscaler(lambda n: n, lambda: 2, min_size=1,
+                                     max_size=None) is None
+    monkeypatch.setenv("HVD_TPU_FLEET_PLAN", "0:2,5:4")
+    sc = maybe_training_autoscaler(lambda n: n, lambda: 2, min_size=1,
+                                   max_size=4)
+    assert sc is not None and isinstance(sc.policy, tpolicy.SchedulePolicy)
+    monkeypatch.delenv("HVD_TPU_FLEET_PLAN")
+    monkeypatch.setenv("HVD_TPU_FLEET_TTFT_SLO", "0.5")
+    monkeypatch.delenv("HVD_TPU_FLEET_SCRAPE", raising=False)
+    assert maybe_training_autoscaler(lambda n: n, lambda: 2, min_size=1,
+                                     max_size=4) is None
 
 
 # -- the router over the port's engines ---------------------------------------

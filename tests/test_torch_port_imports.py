@@ -47,8 +47,9 @@ def test_no_jax_imports_anywhere_in_the_port():
 def test_port_imports_and_serves_with_jax_blocked():
     """Every module imports, the engine serves (plain, speculative, and
     through a prefill→decode fleet), training steps run (the
-    transformer's and the ResNet's) and ring attention runs (world 1)
-    with jax, flax, optax and horovod_tpu blocked outright."""
+    transformer's and the ResNet's), ring attention runs (world 1), and
+    the guard, elastic and runner modules import and one guarded step
+    runs, with jax, flax, optax and horovod_tpu blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -132,6 +133,22 @@ def test_port_imports_and_serves_with_jax_blocked():
         "assert torch.equal(ring_flash_attention(rq, rq, rq),\n"
         "    flash_attention.flash_attention(rq, rq, rq))\n"
         "assert ring_window_steps(4, 8, True, 3) == 2\n"
+        "hvd.shutdown()\n"
+        "from horovod_tpu_torch import guard, elastic, runner\n"
+        "from horovod_tpu_torch.runner import elastic_driver, launch\n"
+        "from horovod_tpu_torch.fleet import PreemptionGuard\n"
+        "from horovod_tpu_torch.common import wire_auth\n"
+        "hvd.init(device='cpu')\n"
+        "gm = ResNetTiny(dtype=torch.float32, device='cpu')\n"
+        "go = torch.optim.SGD(gm.parameters(), lr=0.1)\n"
+        "gs = training.data_parallel_train_step(gm, go, guard=True)\n"
+        "_, gl, gd = gs(training.create_train_state(gm, go),\n"
+        "    torch.randn(2, 16, 16, 3), torch.tensor([1, 2]))\n"
+        "assert bool(gd['finite']) and gd['digest'].shape == (2,)\n"
+        "assert (gd['digest'].numpy() == guard.host_digest(\n"
+        "    [p.grad for p in gm.parameters()])).all()\n"
+        "es = elastic.TpuState(model=gm, optimizer=go, step=1)\n"
+        "es.sync()\n"
         "hvd.shutdown()\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
