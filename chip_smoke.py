@@ -79,7 +79,9 @@ if any fails:
    kernel exactly 32 times (once per layer; no CUDA-core forward), the
    second wave must hit the prefix cache, and each first token's logits
    must match a dense cache-free forward; then a profiled wave (device
-   time by kernel class) and 8 profiled decode steps alone;
+   time by kernel class) and 8 profiled decode steps alone; then the
+   engine's step inventories (:func:`serving_views`, part (e) of the
+   observe phase);
 5. oracle: llama3_8b width, 2 layers, fp32 — greedy streams through the
    engine (the CUDA-core forward on mixed steps, the paged decode on
    decode steps), through a speculative engine (``spec_k=4``, the
@@ -228,12 +230,29 @@ if any fails:
    faulted runs end with the uninterrupted losses and parameter digest
    bit for bit, 12 launches of each training kernel every step; the
    restart split (persist, snapshot bytes, reboot, restore) and the
-   kill's respawn-to-resume time.
+   kill's respawn-to-resume time;
+19. observe: ``python -m horovod_tpu_torch.bench``'s ``main`` in
+   process at full width (bench.py's ResNet-50 configuration, batch 128
+   of 224x224, 5 + 30 steps) with a Chrome timeline: a finite loss, MFU
+   <= 1, 53 launches of each fused-norm kernel a step, one ``COMM``
+   begin/end pair per collective call (as many as
+   ``hvd_tpu_collectives_total`` moved); the bench again fed from npy
+   shards (2 + 10 steps, its input wait); one overlapped gpt_small step
+   under torch.profiler with one ``hvd_tpu::bucket.<b>::COMM`` range per
+   bucket; ``record_overlap_metrics(overlap_inventory(...))`` of it (the
+   gauge equals the inventory's exposed fraction, the buckets' bytes
+   the model's gradient bytes); the serving step inventories (the
+   decode step: 32 paged-decode kernels, nothing gathered; the mixed
+   step: 32 sm90 forwards, the modeled gather bytes); ``cluster_snapshot``
+   at world 1.  Under ``--phases dp4`` each rank also profiles one
+   overlapped step (``measured_overlap_exposed`` of the NCCL kernels)
+   and the four ranks take a ``cluster_snapshot``.
 
 Each main path (serving, spec, disagg, training, overlap, zero, remat,
-resnet, pipeline, ring, ring4, guard, elastic) is driven with the
-kernels' launch counts set to 0 just before it and read just after (the
-elastic workers count in their own processes, per step).  The card's
+resnet, pipeline, ring, ring4, guard, elastic, observe's bench runs) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after (the elastic workers count in their own processes, per
+step).  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -248,7 +267,7 @@ the sm90 forward launches summed over the serving, spec, disagg,
 training, overlap, zero, remat, guard and elastic runs, the paged
 decode's over the serving, spec and disagg runs, dq and dkv over the
 training, overlap, zero, remat, guard and elastic runs, the fused-norm
-launches over the resnet and pipeline runs; the six ``*_kv_offset`` entries (the forward, dq and
+launches over the resnet, pipeline and observe (two bench runs) runs; the six ``*_kv_offset`` entries (the forward, dq and
 dkv at a non-zero offset, each variant) at the ring's own past-block
 call at gpt_small's shard, their launches the ring phase's (and
 ring4's);
@@ -1590,6 +1609,7 @@ def phase_serving():
                pool_gb=eng.pool_bytes / 1e9, peak_mem_gb=peak_gb)
     log("  serving: " + json.dumps(rec))
     rec["profile"] = profile_wave(eng, list(prompts.values()))
+    rec["views"] = serving_views(eng)
     del eng
     torch.cuda.empty_cache()
     return rec
@@ -1651,9 +1671,11 @@ def _device_breakdown(prof, wall, steps, classify=None):
     """Device time and kernels per step by kernel class, device time by
     kernel name, the device busy share (union of kernel intervals over
     the wall) and kernels per step from a torch.profiler capture."""
-    from torch.autograd import DeviceType
+    from horovod_tpu_torch.utils.profiler import device_kernels
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the host spans the profiler mirrors onto the device timeline (the
+    # collectives' COMM ranges, overlap.bucket) are not kernels
+    kernels = device_kernels(prof)
     by_class, n_class, by_name, spans = {}, {}, {}, []
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
@@ -3447,6 +3469,12 @@ from horovod_tpu_torch.models import Transformer, init_params
 from horovod_tpu_torch.models import transformer as tm
 from horovod_tpu_torch.ops import collective_ops
 from horovod_tpu_torch.ops.fusion import FusionPlan, fuse, fusion_threshold
+try:  # the observability layer, where the package root has it
+    from horovod_tpu_torch.metrics import aggregate as _agg
+    from horovod_tpu_torch.ops import comm_model as _cm, overlap as _ov
+    observe = hasattr(_ov, "measured_overlap_exposed")
+except ImportError:
+    observe = False
 
 (rank, world, store, out, device, preset, b, s, steps, seed,
  reps) = sys.argv[1:12]
@@ -3503,6 +3531,24 @@ for tag in variants:
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     res["variants"][tag] = dict(losses=losses, step_s=times)
+    if tag == "overlap" and observe:
+        # one more overlapped step under the profiler: the buckets'
+        # bridge ranges and the NCCL kernels' exposed share
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [] if cpu else [ProfilerActivity.CUDA])) as prof:
+            state, loss = step(state, x, y)
+            sync()
+        names = [e.name for e in prof.events()]
+        inv = _cm.overlap_inventory(step.reducer.last_record)
+        res["observe"] = dict(
+            measured_exposed=_ov.measured_overlap_exposed(prof),
+            buckets=step.reducer.schedule.num_buckets,
+            bucket_ranges=sum(n.startswith("hvd_tpu::bucket.")
+                              and n.endswith("::COMM") for n in names),
+            inventory={k: v for k, v in inv.items() if k != "collectives"})
     res["grad_bytes"] = sum(p.numel() * 4 for p in m.parameters())
     shapes = [p.shape for p in m.parameters()]
     del state, step, m
@@ -3538,6 +3584,13 @@ if hasattr(collective_ops, "_sum_async"):
         sync()
         timing[name].append(time.perf_counter() - t0)
     res["allreduce_s"] = timing
+if observe:
+    snap = _agg.cluster_snapshot()
+    res["cluster"] = dict(
+        ranks=snap["ranks"],
+        merged=snap["metrics"]["hvd_tpu_collectives_total"]["series"],
+        per_rank=[p["metrics"]["hvd_tpu_collectives_total"]["series"]
+                  for p in snap["per_rank"]])
 with open(out, "w") as f:
     json.dump(res, f)
 hvd.shutdown()
@@ -3629,6 +3682,26 @@ def phase_dp4(roots, device="cuda", preset="gpt_small", b=TRAIN_B,
                     zip(var["zero"]["losses"], var["plain"]["losses"])]
             assert max(errs) <= ZERO_LOSS_REL_TOL, errs
             var["zero"]["loss_rel_err_vs_plain"] = max(errs)
+        if "cluster" in recs[0]:
+            # cluster_snapshot at world 4: every rank holds the same
+            # merge, each counter the sum of the ranks' own
+            c = recs[0]["cluster"]
+            assert c["ranks"] == world and len(c["per_rank"]) == world
+            assert all(r["cluster"]["merged"] == c["merged"] for r in recs)
+            sums = {}
+            for series in c["per_rank"]:
+                for k, v in series:
+                    sums[tuple(k)] = sums.get(tuple(k), 0.0) + v
+            assert {tuple(k): v for k, v in c["merged"]} == sums, c
+            run["cluster_collectives"] = {"/".join(k): v
+                                          for k, v in c["merged"]}
+        if "observe" in recs[0]:
+            for r in recs:
+                o = r["observe"]
+                assert o["bucket_ranges"] == o["buckets"], o
+                if device == "cuda":
+                    assert 0.0 <= o["measured_exposed"] <= 1.0, o
+            run["overlap_observe"] = [r["observe"] for r in recs]
         if "allreduce_s" in recs[0]:
             run["allreduce_ms_median"] = {
                 k: sorted(t)[len(t) // 2] * 1e3
@@ -4456,9 +4529,276 @@ def phase_elastic(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S,
     return rec
 
 
+# -- phase 19: observability and the benchmark entry -------------------------
+
+#: the streamed bench run's warm-up and timed steps
+OBSERVE_NPY_STEPS = (2, 10)
+
+
+def _views_engine(device):
+    """The serving views' engine when the serving phase did not run: on
+    the card the serving phase's llama3_8b engine (bf16, full width,
+    seeded weights); on the CPU a two-layer llama-shaped rehearsal."""
+    import torch
+
+    from horovod_tpu_torch.models import (TransformerConfig, init_params,
+                                          llama3_8b)
+    from horovod_tpu_torch.serving import ServeConfig, ServingEngine
+
+    if device == "cuda":
+        cfg = llama3_8b(dtype=torch.bfloat16)
+    else:
+        cfg = TransformerConfig(vocab_size=97, num_layers=2, num_heads=4,
+                                num_kv_heads=2, head_dim=8, max_seq_len=64,
+                                dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device).manual_seed(SEED),
+                         device=device)
+    return ServingEngine(cfg, params, serve=ServeConfig(
+        block_size=16, decode_tiers=(1, 2, 4, 8), prefill_chunk=256),
+        device=device)
+
+
+def serving_views(eng):
+    """(e) The A8f stand-ins on ``eng``: ``decode_step_inventory`` at
+    the largest batch tier and a page tier of 8 (128 keys), and
+    ``mixed_step_inventory`` at the smallest tiers with the full-table
+    gather (the JAX ``lowered_mixed_text`` defaults), each ONE step under
+    torch.profiler.  On the card the decode step launches the paged
+    decode kernel once a layer, no forward, and gathers nothing (the
+    kernel reads the pools in place); the mixed step launches the sm90
+    forward once a layer and gathers ``batch_tier ×
+    modeled_decode_read_bytes(...)["gathered_bytes"]`` bytes."""
+    from horovod_tpu_torch.serving.kv_cache import modeled_decode_read_bytes
+
+    cfg = eng.cfg
+    n = cfg.num_layers
+    cuda = eng.device.type == "cuda"
+    bt_dec, pt = eng.decode_tiers[-1], min(8, eng.page_tiers[-1])
+    dec = eng.decode_step_inventory(batch_tier=bt_dec, pages=pt)
+    bt, c = eng.decode_tiers[0], eng.chunk_tiers[0]
+    mix = eng.mixed_step_inventory(batch_tier=bt, chunk_tier=c)
+    el = 2 if cfg.dtype is not None and "16" in str(cfg.dtype) else 4
+    modeled = bt * modeled_decode_read_bytes(
+        cfg.max_seq_len, block_size=eng.serve_cfg.block_size,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim, num_layers=n, dtype_bytes=el,
+        max_seq_len=cfg.max_seq_len)["gathered_bytes"]
+
+    def launches(inv, key):
+        return sum(k["launches"] for name, k in inv["kernels"].items()
+                   if key in name)
+
+    rec = dict(
+        decode=dict(batch_tier=bt_dec, pages=pt,
+                    gather_bytes=dec["gather_bytes"],
+                    paged_decode_kernels=launches(dec, "flash_decode_kernel"),
+                    forward_kernels=launches(dec, "flash_fwd"),
+                    kernels=len(dec["kernels"]),
+                    device_ms=sum(k["device_ms"]
+                                  for k in dec["kernels"].values())),
+        mixed=dict(batch_tier=bt, chunk_tier=c,
+                   gather_bytes=mix["gather_bytes"], modeled_bytes=modeled,
+                   sm90_forward_kernels=launches(mix, "flash_fwd_sm90_kernel"),
+                   kernels=len(mix["kernels"]),
+                   device_ms=sum(k["device_ms"]
+                                 for k in mix["kernels"].values())))
+    log("  serving views: " + json.dumps(rec))
+    assert dec["gather_bytes"] == 0, dec["gather_bytes"]
+    assert mix["gather_bytes"] == modeled, (mix["gather_bytes"], modeled)
+    if cuda:
+        assert rec["decode"]["paged_decode_kernels"] == n, rec["decode"]
+        assert rec["decode"]["forward_kernels"] == 0, rec["decode"]
+        assert rec["mixed"]["sm90_forward_kernels"] == n, rec["mixed"]
+    return rec
+
+
+def _bench_run(argv):
+    """``bench.main(argv)`` in this process, with the fused-norm kernels'
+    launch counts set to 0 just before it and read just after, and the
+    ``hvd_tpu_collectives_total`` delta over the run."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.metrics import instruments as _m
+
+    def collectives():
+        return sum(v for _, v in _m.COLLECTIVES.samples())
+
+    for w in _bn_wrappers():
+        w.launches = 0
+    c0 = collectives()
+    res = bench.main(argv)
+    return res, dict(zip(("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_dx"),
+                         _bn_counts())), collectives() - c0
+
+
+def _bench_line(res):
+    keys = ("value", "step_time_ms", "mfu", "vs_baseline", "input_wait_ms",
+            "input_wait_pct", "final_loss", "batch", "image_size", "data")
+    return json.dumps({k: res[k] for k in keys} | {
+        "max_memory_gb": (res["memory_per_rank"]["max_memory_allocated"]
+                          or 0) / 1e9, "device": res["device"]})
+
+
+def phase_observe(serving=None, device="cuda", preset="gpt_small", b=TRAIN_B,
+                  s=TRAIN_S):
+    """The observability layer and the benchmark entry on the card:
+
+    (a) ``python -m horovod_tpu_torch.bench``'s ``main`` in process at
+    full width (ResNet-50, batch 128 of 224x224, 5 + 30 steps, one
+    device-resident batch) with ``--timeline``: a finite loss, MFU <= 1,
+    exactly 53 launches of each fused-norm kernel a step (35 steps), and
+    a timeline that parses as JSON and holds one ``COMM`` begin/end pair
+    per collective call of the run (each bucket launch one call), as
+    many as ``hvd_tpu_collectives_total`` moved;
+    (b) the bench again through the input pipeline (``--data npy``,
+    self-seeded shards, 2 + 10 steps): its ``input_wait_ms``;
+    (c) one gpt_small data-parallel step (``overlap=True``) under
+    torch.profiler: one ``hvd_tpu::bucket.<b>::COMM`` range per bucket
+    of the step's ``BucketSchedule``, and ``measured_overlap_exposed``
+    of the capture (None at world 1: no NCCL kernel);
+    (d) ``record_overlap_metrics(overlap_inventory(...))`` of that step:
+    the gauge equals the inventory's ``exposed_fraction`` and the
+    buckets' bytes sum to the model's gradient bytes (the schedule
+    modeled at 8 ranks printed beside);
+    (e) the serving views (:func:`serving_views`; the serving phase's
+    record when it ran, else a fresh engine);
+    (f) ``cluster_snapshot`` at world 1 over NCCL: one rank, its own
+    snapshot under ``per_rank``, the collectives counter as merged.
+
+    ``device="cpu"`` is a rehearsal at small sizes (launch counts are
+    the card's only)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, training
+    from horovod_tpu_torch.metrics import instruments as _m
+    from horovod_tpu_torch.ops.comm_model import overlap_inventory
+    from horovod_tpu_torch.ops.overlap import (measured_overlap_exposed,
+                                               record_overlap_metrics)
+
+    cuda = device == "cuda"
+    card = card_line()
+    small = [] if cuda else ["--device", "cpu", "--batch", "2"]
+    tmp = tempfile.mkdtemp(prefix="hvd_observe_")
+    rec = {}
+    try:
+        # (a) the headline bench with a timeline
+        timeline = os.path.join(tmp, "timeline.json")
+        steps = (5 + 30) if cuda else (1 + 2)
+        res, bn, calls = _bench_run(small + ["--data", "synthetic",
+                                             "--timeline", timeline])
+        assert math.isfinite(res["final_loss"]), res["final_loss"]
+        assert res["mfu"] is None or 0 < res["mfu"] <= 1, res["mfu"]
+        if cuda:
+            want = RESNET_SITES * steps
+            assert all(v == want for v in bn.values()), (
+                f"fused-norm launches {bn} != {RESNET_SITES} a step x "
+                f"{steps} steps")
+        with open(timeline) as f:
+            events = json.load(f)
+        begins = [e for e in events if e.get("ph") == "B"]
+        ends = [e for e in events if e.get("ph") == "E"]
+        assert {e["name"] for e in begins + ends} <= {"COMM"}, begins[:3]
+        assert len(begins) == len(ends) == calls, (len(begins), len(ends),
+                                                   calls)
+        rows = {}
+        for e in begins:
+            rows[e["args"]["tensor"]] = rows.get(e["args"]["tensor"], 0) + 1
+        rec["bench"] = dict(result=res, bn_launches=bn, collectives=calls,
+                            timeline_rows=rows,
+                            cycles=sum(e.get("ph") == "i" for e in events))
+        log(f"  observe bench ({card}): " + _bench_line(res))
+        log("  observe bench timeline: " + json.dumps(
+            dict(collectives=calls, comm_pairs=len(begins), rows=rows,
+                 cycles=rec["bench"]["cycles"],
+                 comm_bytes=res["comm_bytes"])))
+        # (b) the streamed bench
+        w, n = OBSERVE_NPY_STEPS if cuda else (1, 2)
+        res_npy, bn_npy, _ = _bench_run(small + [
+            "--data", "npy", "--warmup", str(w), "--iters", str(n)])
+        assert math.isfinite(res_npy["final_loss"]), res_npy["final_loss"]
+        if cuda:
+            assert all(v == RESNET_SITES * (w + n) for v in bn_npy.values()
+                       ), bn_npy
+        rec["bench_npy"] = dict(result=res_npy, bn_launches=bn_npy)
+        log(f"  observe bench npy ({card}): " + _bench_line(res_npy)
+            + f" pipeline {json.dumps(res_npy['pipeline'])}")
+        rec["launches"] = {k: bn[k] + bn_npy[k] for k in bn}
+        # (c) + (d) the profiler bridge and the overlap metrics
+        hvd.init(device=None if cuda else "cpu")
+        cfg, model, inputs, labels = _train_model(device, preset, b, s)
+        opt = _adamw(model.parameters())
+        state = training.create_train_state(model, opt)
+        step = training.data_parallel_train_step(model, opt, overlap=True)
+        n_buckets = step.reducer.schedule.num_buckets
+        state, loss = step(state, inputs, labels)  # outside the capture
+        if cuda:
+            torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if cuda else [])
+        with profile(activities=acts) as prof:
+            state, loss = step(state, inputs, labels)
+            if cuda:
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        ranges = {bk: names.count(f"hvd_tpu::bucket.{bk}::COMM")
+                  for bk in range(n_buckets)}
+        assert all(v == 1 for v in ranges.values()), ranges
+        assert names.count("hvd_tpu::allreduce::COMM") == 1  # the loss
+        measured = measured_overlap_exposed(prof)
+        inv = record_overlap_metrics(overlap_inventory(
+            step.reducer.last_record))
+        assert _m.OVERLAP_EXPOSED_FRACTION.get() == inv["exposed_fraction"]
+        grad_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+        assert sum(c["payload_bytes"] for c in inv["collectives"]) == \
+            grad_bytes, (inv["collectives"][:2], grad_bytes)
+        assert len(inv["collectives"]) == n_buckets
+        at8 = overlap_inventory(step.reducer.last_record, world=8)
+        rec["overlap"] = dict(
+            buckets=n_buckets, comm_ranges=sum(ranges.values()),
+            measured_exposed=measured, grad_bytes=grad_bytes,
+            exposed_fraction=inv["exposed_fraction"],
+            interleaved=inv["interleaved"],
+            exposed_fraction_at_8=at8["exposed_fraction"],
+            interleaved_at_8=at8["interleaved"],
+            compute_after=[c["compute_after"] for c in inv["collectives"]],
+            float_loss=float(loss))
+        log("  observe overlap: " + json.dumps(rec["overlap"]))
+        del state, step, model, opt
+        # (f) cluster_snapshot at world 1
+        snap = metrics.cluster_snapshot()
+        assert snap["ranks"] == 1 and len(snap["per_rank"]) == 1
+        mine = snap["per_rank"][0]["metrics"]["hvd_tpu_collectives_total"]
+        merged = snap["metrics"]["hvd_tpu_collectives_total"]
+        assert merged["series"] == sorted(mine["series"]), (merged, mine)
+        info = snap["metrics"]["hvd_tpu_process_info"]["series"]
+        assert info == [[["0", "0", "0", "1", "1"], 1.0]], info
+        rec["cluster"] = dict(ranks=snap["ranks"], collectives={
+            "/".join(k): v for k, v in merged["series"]})
+        log("  observe cluster_snapshot: " + json.dumps(rec["cluster"]))
+        hvd.shutdown()
+        # (e) the serving views
+        views = (serving or {}).get("views")
+        if views is None:
+            eng = _views_engine(device)
+            views = serving_views(eng)
+            del eng
+        rec["views"] = views
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        hvd.shutdown()
+        if cuda:
+            torch.cuda.empty_cache()
+    return rec
+
+
 PHASES = ("kernels", "serving", "oracle", "spec", "disagg", "training",
           "overlap", "zero", "training_oracle", "remat", "resnet",
-          "resnet_oracle", "pipeline", "ring", "guard", "elastic")
+          "resnet_oracle", "pipeline", "ring", "guard", "elastic", "observe")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -4469,7 +4809,8 @@ BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
 
 def bn_entries(bn_kern, resnet):
     """The fused-norm kernels' entries: ``launches`` summed over the
-    main paths' runs in ``resnet`` (the resnet and pipeline phases);
+    main paths' runs in ``resnet`` (the resnet, pipeline and observe
+    phases);
     ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed
     over ResNet-50's 53 sites at batch 128 (each site shape's bf16 case
     times its count: one training step's worth), ``library_ms``
@@ -4738,6 +5079,10 @@ def main(argv=None) -> int:
     if "elastic" in phases:
         log("phase elastic:")
         elastic = phase_elastic()
+    observe = None
+    if "observe" in phases:
+        log("phase observe:")
+        observe = phase_observe(serving)
     if "dp4" in phases:
         log("phase dp4:")
         phase_dp4(args.roots.split(","))
@@ -4751,7 +5096,7 @@ def main(argv=None) -> int:
     entries = (kernel_entries(kern, train_kern, serving, train,
                               train_oracle, oracle, (spec, disagg))
                + offset_entries(b9, ring, ring4)
-               + bn_entries(bn_kern, (resnet, pipeline)))
+               + bn_entries(bn_kern, (resnet, pipeline, observe)))
     log(card)
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

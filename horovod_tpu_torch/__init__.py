@@ -31,7 +31,11 @@ crash-atomic checkpoints (``checkpoint``), the Keras-style callbacks
 ``training.fit_epoch``, and fault-tolerant training: the integrity
 guard (``guard``), elastic state and the elastic run loop
 (``elastic``), and the launcher with its elastic driver
-(``python -m horovod_tpu_torch.runner``).
+(``python -m horovod_tpu_torch.runner``), and Horovod's observability:
+every collective's counters, latency and spans, the Chrome timeline
+(``HVD_TPU_TIMELINE``, ``start_timeline``), the ``torch.profiler``
+bridge, ``metrics.cluster_snapshot`` and the overlap and serving step
+views, with the benchmark entry ``python -m horovod_tpu_torch.bench``.
 Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.
@@ -60,6 +64,8 @@ from .common.basics import (
     rocm_built,
     shutdown,
     size,
+    start_timeline,
+    stop_timeline,
     xla_built,
 )
 from .common import basics as _basics

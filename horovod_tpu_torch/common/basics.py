@@ -24,6 +24,11 @@ Where the ranks come from:
   pass a ``file://`` store in a temporary directory);
 * neither: a single process is world 1, and its rendezvous is a file
   store in a fresh temporary directory — never a fixed TCP port.
+
+``init`` opens the Chrome timeline when ``HVD_TPU_TIMELINE`` (or
+``HOROVOD_TIMELINE``) names a file, as the JAX package's Python fallback
+does; :func:`start_timeline` / :func:`stop_timeline` open and close one
+at runtime.  It also sets the ``hvd_tpu_process_info`` identity gauge.
 """
 
 from __future__ import annotations
@@ -60,6 +65,10 @@ class _State:
         self.device_arg = None
         #: the process group is left to process exit (see _abandon)
         self.abandoned = False
+        #: the open Chrome timeline (utils/timeline.py), or None
+        self.timeline = None
+        #: write a CYCLE instant per gradient flush into the timeline
+        self.mark_cycles = False
         self.process_set_registry = ProcessSetRegistry()
 
 
@@ -116,17 +125,28 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
             init_method = ("tcp://" + coordinator
                            if coordinator and not torchrun else "env://")
         dev = _resolve(device, local_rank)
+        from ..utils.env_parser import Config
+
+        config = Config.from_env()
+        if config.timeline_filename:  # opened first: a bad path joins nothing
+            _open_timeline(config.timeline_filename,
+                           config.timeline_mark_cycles, rank)
         backend = "gloo" if dev.type == "cpu" else "nccl"
         timeout = datetime.timedelta(seconds=_TIMEOUT_S)
-        if init_method is None and size == 1 and not launched:
-            _state.store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")
-            store = dist.FileStore(os.path.join(_state.store_dir, "store"), 1)
-            dist.init_process_group(backend, store=store, rank=0,
-                                    world_size=1, timeout=timeout)
-        else:
-            dist.init_process_group(backend, init_method=init_method or
-                                    "env://", rank=rank, world_size=size,
-                                    timeout=timeout)
+        try:
+            if init_method is None and size == 1 and not launched:
+                _state.store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")
+                store = dist.FileStore(
+                    os.path.join(_state.store_dir, "store"), 1)
+                dist.init_process_group(backend, store=store, rank=0,
+                                        world_size=1, timeout=timeout)
+            else:
+                dist.init_process_group(backend, init_method=init_method or
+                                        "env://", rank=rank,
+                                        world_size=size, timeout=timeout)
+        except BaseException:
+            _close_timeline()
+            raise
         _state.device_arg = device
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
@@ -137,9 +157,53 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
         from .. import chaos as _chaos
 
         _chaos.install_from_env(rank=rank)
+        from ..metrics import instruments as _instruments
+
+        # one process per GPU: the world size is the process count
+        _instruments.PROCESS_INFO.labels(
+            str(rank), str(local_rank), str(size), str(size)).set(1)
         _state.initialized = True
         get_logger().info("initialized: rank %d of %d on %s (%s)",
                           rank, size, dev, backend)
+
+
+def _open_timeline(file_path: str, mark_cycles: bool, rank: int) -> None:
+    from ..utils.timeline import Timeline
+
+    try:
+        _state.timeline = Timeline(file_path, rank=rank)
+    except OSError as e:
+        raise ValueError(f"cannot open {file_path!r}: {e}") from e
+    _state.mark_cycles = bool(mark_cycles)
+
+
+def start_timeline(file_path: str, mark_cycles: bool = True) -> None:
+    """Begin writing the Chrome-trace timeline at runtime (reference:
+    hvd.start_timeline / horovod_start_timeline in operations.cc) — the
+    programmatic alternative to setting ``HVD_TPU_TIMELINE`` before
+    init.  ``mark_cycles``: write a ``CYCLE`` instant per gradient flush
+    of a training step.  Raises ``ValueError`` when a timeline is
+    already open or the file cannot be opened."""
+    st = _require_init()
+    with st.lock:
+        if st.timeline is not None:
+            raise ValueError(
+                "timeline already active (stop_timeline() first)")
+        _open_timeline(file_path, mark_cycles, st.rank)
+
+
+def stop_timeline() -> None:
+    """Close the runtime timeline (reference: hvd.stop_timeline)."""
+    st = _require_init()
+    with st.lock:
+        _close_timeline()
+
+
+def _close_timeline() -> None:
+    if _state.timeline is not None:
+        _state.timeline.close()
+        _state.timeline = None
+    _state.mark_cycles = False
 
 
 def _resolve(device, local_rank: int) -> torch.device:
@@ -171,6 +235,7 @@ def shutdown() -> None:
     with _state.lock:
         if not _state.initialized:
             return
+        _close_timeline()
         _state.process_set_registry.detach()
         if dist.is_initialized() and not _state.abandoned:
             dist.destroy_process_group()

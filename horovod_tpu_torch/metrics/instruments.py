@@ -4,10 +4,13 @@ Copied from ``horovod_tpu/metrics/instruments.py``: the instruments the
 serving slice (speculative decoding, KV migration and the fleet
 router included), the overlapped optimizer, ZeRO, the input pipeline,
 the training loop, the integrity guard, the elastic driver and worker,
-preemption notices, the chaos engine, retries and the flight recorder
-book, under the same names, label sets and buckets (the catalogue in
-docs/METRICS.md describes them).  The collective instruments arrive
-with the slice that books them.
+preemption notices, the chaos engine, retries, the flight recorder,
+the collectives (counts, bytes, latency), the overlap inventory and the
+process identity book, under the same names, label sets and buckets
+(the catalogue in docs/METRICS.md describes them).  The instruments
+whose producers are not ported yet (the native controller's, the
+two-level collectives' tier bytes, the sharded serving psum, the
+framework adapters' gradient norm and epoch metrics) are left out.
 """
 
 from __future__ import annotations
@@ -20,6 +23,29 @@ EXEC_CACHE = counter(
     "hvd_tpu_executable_cache_total",
     "Engine executable-cache lookups by outcome (hit/miss)",
     ["event"],
+)
+
+#: Public collective API submissions, by op and dispatch path
+#: (native = C++ background controller, eager = in-line engine).
+COLLECTIVES = counter(
+    "hvd_tpu_collectives_total",
+    "Collective submissions by op and dispatch path",
+    ["op", "path"],
+)
+
+#: Payload bytes submitted to collectives, by op.
+COLLECTIVE_BYTES = counter(
+    "hvd_tpu_collective_bytes_total",
+    "Tensor bytes submitted to collectives, by op",
+    ["op"],
+)
+
+#: End-to-end latency of a negotiated collective: enqueue() to future
+#: resolution (includes negotiation, fusion and execution).
+OP_LATENCY = histogram(
+    "hvd_tpu_collective_latency_seconds",
+    "Enqueue-to-resolution latency of negotiated collectives, by op",
+    ["op"],
 )
 
 # -- input pipeline (data/ — docs/DATA.md) ------------------------------------
@@ -288,6 +314,17 @@ FLEET_REPLICA_SUSPECTS = counter(
 
 # -- backward/collective overlap (optim.DistributedOptimizer, ops/overlap.py) -
 
+#: Stream-byte share of gradient collectives that trail ALL backward
+#: compute in the compiled step — the static exposed-comm fraction the
+#: bucket schedule exists to shrink (1.0 = unoverlapped jax.grad step;
+#: ~ last-bucket share when the schedule interleaves).  Set from the
+#: lowered program by ``ops.overlap.record_overlap_metrics``.
+OVERLAP_EXPOSED_FRACTION = gauge(
+    "hvd_tpu_overlap_exposed_comm_fraction",
+    "Stream-byte fraction of gradient collectives trailing all backward "
+    "compute in the compiled step (static schedule view)",
+)
+
 #: How early each bucket's collective launches: parameters still awaiting
 #: their gradients when the hook launched it (0 = it trailed the backward).
 OVERLAP_LAUNCH_LEAD = histogram(
@@ -460,4 +497,12 @@ TRACE_BUNDLES = counter(
     "hvd_tpu_trace_bundles_total",
     "Flight-recorder crash bundles written, by trigger reason",
     ["reason"],
+)
+
+# -- process identity --------------------------------------------------------
+
+PROCESS_INFO = gauge(
+    "hvd_tpu_process_info",
+    "Static process identity (value is always 1)",
+    ["rank", "local_rank", "size", "num_processes"],
 )

@@ -40,6 +40,23 @@ were (the ``spmd_ops`` names stay queued in ROADMAP).
   says whether it is done.
 * ``join()`` returns the rank at world 1 and raises across processes,
   as the reference does without its native controller (ROADMAP).
+* Every public collective, sync and async, and every gradient bucket
+  of the optimizers records itself as the JAX package's collectives
+  do: ``hvd_tpu_collectives_total`` (path ``eager``) and
+  ``hvd_tpu_collective_bytes_total`` at submission; an ``ENQUEUE``
+  span around the submission and a ``COMM`` span from the submission
+  until the result is ready, both bridged into ``torch.profiler`` as
+  ``hvd_tpu::<name>::<activity>`` and recorded at the trace sites
+  ``collective.enqueue`` / ``collective.exec``
+  (:mod:`..utils.profiler`); the ``COMM`` span's interval in
+  ``hvd_tpu_collective_latency_seconds``; and, while a Chrome timeline
+  is open (:func:`~..common.basics.start_timeline`), its ``COMM``
+  begin/end pair.  The label is the caller's ``name``, else the op's
+  name (a bucket's: ``bucket.<b>``).  An async op's span ends in its
+  :class:`Handle`'s ``wait``.  An NCCL ``wait`` does not block the
+  host, so while a timeline is open the span ends only once a CUDA
+  event recorded after the result has completed: the span covers the
+  transfer.  With no timeline open nothing synchronises.
 * A backend failure while an op completes — a peer died mid-collective
   (gloo: the closed connection; NCCL: ``DistBackendError``) — raises
   :class:`~..common.exceptions.HorovodInternalError`, the signal the
@@ -53,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -60,6 +78,8 @@ import torch.distributed as dist
 
 from ..common import basics
 from ..common.exceptions import HorovodInternalError, ProcessSetError
+from ..metrics import instruments as _metrics
+from ..utils import profiler as _profiler
 from .fusion import FusionPlan, fuse, fusion_threshold, unfuse
 from .reduce_ops import Average, ReduceOp, Sum
 
@@ -152,25 +172,118 @@ def _divide(x: torch.Tensor, n: int) -> torch.Tensor:
     return x / torch.tensor(n, dtype=x.dtype, device=x.device)
 
 
+# -- instruments -------------------------------------------------------------
+
+#: labelled children of the collective instruments, taken once each
+_CHILDREN: dict = {}
+
+
+def _child(metric, *labels):
+    key = (metric.name,) + labels
+    c = _CHILDREN.get(key)
+    if c is None:
+        c = _CHILDREN[key] = metric.labels(*labels)
+    return c
+
+
+def _count_submission(opname: str, path: str = "eager", tree: Any = None,
+                      n: int = 1) -> None:
+    """Bump the submission counters (per-op count + payload bytes).
+    ``n`` is the number of API-level submissions this call represents
+    (the JAX package's batched path books one per tensor)."""
+    _child(_metrics.COLLECTIVES, opname, path).inc(n)
+    leaves = _flatten(tree)[0] if tree is not None else ()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    if nbytes:
+        _child(_metrics.COLLECTIVE_BYTES, opname).inc(nbytes)
+
+
+def _device_ready(value: Any) -> None:
+    """Block the host until the card has produced ``value``'s tensors:
+    an event recorded on the current stream after them (the collective
+    works' ``wait`` ordered that stream after the transfer)."""
+    for dev in {t.device for t in _flatten(value)[0] if t.is_cuda}:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        ev.synchronize()
+
+
+class _CommSpan:
+    """One collective's ``COMM`` span, opened at its submission and
+    closed by :meth:`end` once the result is ready: the profiler bridge
+    (``collective.exec``), ``OP_LATENCY`` and, when a timeline is open
+    at submission, its begin/end pair."""
+
+    __slots__ = ("label", "opname", "timeline", "bridge", "t0")
+
+    def __init__(self, label: str, opname: str):
+        self.label, self.opname = label, opname
+        self.timeline = tl = basics._state.timeline
+        if tl is not None:
+            tl.start(label, "COMM")
+        self.bridge = _profiler.span(label, "COMM")
+        self.bridge.__enter__()
+        self.t0 = time.perf_counter()
+
+    def end(self, value: Any = None) -> None:
+        tl = self.timeline
+        if tl is not None and value is not None:
+            _device_ready(value)
+        _child(_metrics.OP_LATENCY, self.opname).observe(
+            time.perf_counter() - self.t0)
+        self.bridge.__exit__(None, None, None)
+        if tl is not None:
+            tl.end(self.label, "COMM")
+
+
+def _submit(name: Optional[str], opname: str, tree: Any,
+            start: Callable[[], "Handle"]) -> "Handle":
+    """Submit one collective: ``start()`` launches it and returns its
+    :class:`Handle`, inside an ``ENQUEUE`` span, with a ``COMM`` span
+    open from here until the handle's result is ready."""
+    label = name or opname
+    span = _CommSpan(label, opname)
+    try:
+        with _profiler.span(label, "ENQUEUE"):
+            handle = start()
+    except BaseException:
+        span.end()
+        raise
+    finally:
+        _count_submission(opname, "eager", tree)
+    handle._span = span
+    return handle
+
+
 class Handle:
     """An op in flight (reference: horovod/torch/handle_manager.h): the
-    ``torch.distributed`` works it waits on and the epilogue that turns
-    their buffers into the result."""
+    ``torch.distributed`` works it waits on, the epilogue that turns
+    their buffers into the result, and the op's ``COMM`` span, which
+    ends when ``wait`` has the result."""
 
-    __slots__ = ("_works", "_finish", "_value")
+    __slots__ = ("_works", "_finish", "_value", "_span")
 
     def __init__(self, works: Sequence, finish: Callable[[], Any]):
         self._works = list(works)
         self._finish = finish
         self._value = None
+        self._span: Optional[_CommSpan] = None
 
     def wait(self) -> Any:
         if self._finish is not None:
-            with peer_failures():
-                for w in self._works:
-                    w.wait()
-                self._value = self._finish()
+            span, self._span = self._span, None
+            try:
+                with peer_failures():
+                    for w in self._works:
+                        w.wait()
+                    self._value = self._finish()
+            except BaseException:
+                if span is not None:
+                    span.end()
+                raise
             self._finish = None
+            if span is not None:
+                span.end(self._value)
         return self._value
 
     def done(self) -> bool:
@@ -354,11 +467,11 @@ def allreduce_async(tensor: Any, average: Optional[bool] = None,
                     postscale_factor: float = 1.0,
                     process_set=None) -> Handle:
     """Start a fused allreduce of a tensor or tree; returns a
-    :class:`Handle` (``name`` is accepted for the reference's
-    signature)."""
-    return _allreduce_async(tensor, _normalize_op(op, average),
-                            prescale_factor, postscale_factor, process_set,
-                            ordered=False)
+    :class:`Handle` (``name`` labels its spans)."""
+    rop = _normalize_op(op, average)
+    return _submit(name, "allreduce", tensor, lambda: _allreduce_async(
+        tensor, rop, prescale_factor, postscale_factor, process_set,
+        ordered=False))
 
 
 def allreduce(tensor: Any, average: Optional[bool] = None,
@@ -414,9 +527,12 @@ def allgather_async(tensor: Any, name: Optional[str] = None,
                     process_set=None) -> Handle:
     """Start an allgather (the result is ready when it returns: the
     first dims are exchanged before the data)."""
-    group, n, _ = _scope(process_set)
-    leaves, build = _flatten(tensor)
-    return _ready(build([_gather_leaf(t, group, n) for t in leaves]))
+    def start():
+        group, n, _ = _scope(process_set)
+        leaves, build = _flatten(tensor)
+        return _ready(build([_gather_leaf(t, group, n) for t in leaves]))
+
+    return _submit(name, "allgather", tensor, start)
 
 
 def allgather(tensor: Any, name: Optional[str] = None,
@@ -438,6 +554,12 @@ def grouped_allgather(tensors: Sequence[torch.Tensor],
         return []
     if any(t.dim() == 0 for t in tensors):
         raise ValueError("allgather needs tensors of rank >= 1")
+    return _submit(name, "allgather", tensors, lambda: _ready(
+        _grouped_allgather(tensors, process_set))).wait()
+
+
+def _grouped_allgather(tensors: List[torch.Tensor], process_set
+                       ) -> List[torch.Tensor]:
     group, n, _ = _scope(process_set)
     dev = tensors[0].device
     dim0s = _gather_dim0s(torch.tensor([t.shape[0] for t in tensors],
@@ -481,14 +603,18 @@ def broadcast_async(tensor: Any, root_rank: int, name: Optional[str] = None,
                               f"process set {ps.process_set_id}")
     group, _, _ = _scope(process_set)
     leaves, build = _flatten(tensor)
-    out, works = [], []
-    for t in leaves:
-        buf = t.detach().clone().contiguous()
-        wire = buf.view(torch.uint8) if buf.dtype == torch.bool else buf
-        works.append(dist.broadcast(wire, src=root_rank, group=group,
-                                    async_op=True))
-        out.append(buf)
-    return Handle(works, lambda: build(out))
+
+    def start():
+        out, works = [], []
+        for t in leaves:
+            buf = t.detach().clone().contiguous()
+            wire = buf.view(torch.uint8) if buf.dtype == torch.bool else buf
+            works.append(dist.broadcast(wire, src=root_rank, group=group,
+                                        async_op=True))
+            out.append(buf)
+        return Handle(works, lambda: build(out))
+
+    return _submit(name, "broadcast", tensor, start)
 
 
 def broadcast(tensor: Any, root_rank: int, name: Optional[str] = None,
@@ -521,22 +647,26 @@ def alltoall_async(tensor: torch.Tensor,
         if len(send) != n or sum(send) != dim0 or min(send) < 0:
             raise ValueError(f"splits must be shape ({n},) of non-negative "
                              f"counts summing to dim0 of the input")
-    all_splits = _gather_dim0s(torch.tensor(send, dtype=torch.int64,
-                                            device=tensor.device), group, n)
-    recv = [all_splits[p][me] for p in range(n)]
-    x = tensor.contiguous()
-    wire = x.view(torch.uint8) if x.dtype == torch.bool else x
-    out = wire.new_empty((sum(recv),) + tuple(x.shape[1:]))
-    work = dist.all_to_all_single(out, wire, output_split_sizes=recv,
-                                  input_split_sizes=send, group=group,
-                                  async_op=True)
-    recv_splits = torch.tensor(recv, dtype=torch.int32)
 
-    def finish():
-        return (out.view(torch.bool) if x.dtype == torch.bool else out,
-                recv_splits)
+    def start():
+        all_splits = _gather_dim0s(torch.tensor(
+            send, dtype=torch.int64, device=tensor.device), group, n)
+        recv = [all_splits[p][me] for p in range(n)]
+        x = tensor.contiguous()
+        wire = x.view(torch.uint8) if x.dtype == torch.bool else x
+        out = wire.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        work = dist.all_to_all_single(out, wire, output_split_sizes=recv,
+                                      input_split_sizes=send, group=group,
+                                      async_op=True)
+        recv_splits = torch.tensor(recv, dtype=torch.int32)
 
-    return Handle([work], finish)
+        def finish():
+            return (out.view(torch.bool) if x.dtype == torch.bool else out,
+                    recv_splits)
+
+        return Handle([work], finish)
+
+    return _submit(name, "alltoall", tensor, start)
 
 
 def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
@@ -567,21 +697,26 @@ def reducescatter_async(tensor: Any, op: ReduceOp = Sum,
         if t.dim() == 0 or t.shape[0] % n:
             raise ValueError(f"reducescatter needs dim 0 divisible by "
                              f"{n}, got shape {tuple(t.shape)}")
-    works, results = [], []
-    for t in leaves:
-        w, res = _reduce_scatter_start(t.detach().reshape(-1).contiguous(),
-                                       group, n, me)
-        works += w
-        results.append(res)
 
-    def finish():
-        out = []
-        for t, res in zip(leaves, results):
-            part = res().view((t.shape[0] // n,) + tuple(t.shape[1:]))
-            out.append(_divide(part, n) if op == ReduceOp.AVERAGE else part)
-        return build(out)
+    def start():
+        works, results = [], []
+        for t in leaves:
+            w, res = _reduce_scatter_start(
+                t.detach().reshape(-1).contiguous(), group, n, me)
+            works += w
+            results.append(res)
 
-    return Handle(works, finish)
+        def finish():
+            out = []
+            for t, res in zip(leaves, results):
+                part = res().view((t.shape[0] // n,) + tuple(t.shape[1:]))
+                out.append(_divide(part, n) if op == ReduceOp.AVERAGE
+                           else part)
+            return build(out)
+
+        return Handle(works, finish)
+
+    return _submit(name, "reducescatter", tensor, start)
 
 
 def reducescatter(tensor: Any, op: ReduceOp = Sum,
@@ -619,11 +754,16 @@ def barrier(process_set=None) -> None:
     horovod_barrier)."""
     st = basics._require_init()
     group, _, _ = _scope(process_set)
-    with peer_failures():
-        if st.backend == "nccl":
-            dist.barrier(group=group, device_ids=[st.device.index])
-        else:
-            dist.barrier(group=group)
+
+    def start():
+        with peer_failures():
+            if st.backend == "nccl":
+                dist.barrier(group=group, device_ids=[st.device.index])
+            else:
+                dist.barrier(group=group)
+        return _ready(None)
+
+    _submit(None, "barrier", None, start).wait()
 
 
 def join() -> int:

@@ -1,16 +1,23 @@
-"""Backward/collective overlap: the bucket autotuner.
+"""Backward/collective overlap: the bucket autotuner and the overlap
+metrics.
 
 Port of ``horovod_tpu/ops/overlap.py``'s policy code (``Candidate``,
-``BucketAutotuner``).  The overlap itself needs no module here: the JAX
-package splits the backward into a chain of segments so that each
-bucket's reduction can sit between them in one compiled program
-(``overlapped_value_and_grad``); in PyTorch autograd's
+``BucketAutotuner``) and ``record_overlap_metrics``.  The overlap itself
+needs no module here: the JAX package splits the backward into a chain
+of segments so that each bucket's reduction can sit between them in one
+compiled program (``overlapped_value_and_grad``); in PyTorch autograd's
 post-accumulate-grad hooks mark the bucket boundaries, and the hooked
 ``optim.DistributedOptimizer`` launches each
 :class:`~.fusion.BucketSchedule` bucket's allreduce from the hook that
-completes it.  ``record_overlap_metrics`` reads a lowered StableHLO
-program the port does not have; its profiler-measured stand-in is
-queued (ROADMAP).
+completes it.
+
+:func:`record_overlap_metrics` feeds the overlap instruments from an
+inventory (:func:`~.comm_model.overlap_inventory` of the reducer's
+launch record: the static, schedule-structure view), and
+:func:`measured_overlap_exposed` is its wall-clock twin, read from a
+``torch.profiler`` capture of an overlapped step: the share of the
+communication kernels' time that no compute kernel on another stream
+covers.
 
 :class:`BucketAutotuner` sweeps bucket-size candidates against step
 times the caller measures, pins the fastest within a trial budget, and
@@ -21,13 +28,70 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
 from .. import trace as _trace
 from ..metrics import instruments as _metrics
+from ..utils import profiler as _profiler
 from ..utils.env_parser import Config
+
+
+def record_overlap_metrics(inventory: Dict[str, Any]) -> Dict[str, Any]:
+    """Feed the ``hvd_tpu_overlap_*`` instruments from an overlap
+    inventory (:func:`~.comm_model.overlap_inventory`): the static
+    exposed-comm fraction, and each bucket's launch lead (its
+    ``compute_after``).  Returns the inventory, so that benches and
+    tests share the numbers the gauges saw."""
+    _metrics.OVERLAP_EXPOSED_FRACTION.set(inventory["exposed_fraction"])
+    for op in inventory["collectives"]:
+        _metrics.OVERLAP_LAUNCH_LEAD.observe(op["compute_after"])
+    return inventory
+
+
+def _is_comm_kernel(name: str) -> bool:
+    return "nccl" in name.lower()
+
+
+def exposed_comm_share(comm: Sequence[Tuple[float, float, Any]],
+                       compute: Sequence[Tuple[float, float, Any]]
+                       ) -> Optional[float]:
+    """The share of the communication kernels' time that no compute
+    kernel on another stream covers.  Each kernel is ``(start, end,
+    stream)``; a communication kernel's exposed time is its interval
+    less the union of the compute intervals on the other streams.
+    None when there is no communication time."""
+    total = exposed = 0.0
+    for a, b, stream in comm:
+        total += b - a
+        cover = sorted((max(a, c0), min(b, c1)) for c0, c1, s in compute
+                       if s != stream and c0 < b and c1 > a)
+        covered, end = 0.0, a
+        for c0, c1 in cover:
+            if c1 > end:
+                covered += c1 - max(c0, end)
+                end = c1
+        exposed += (b - a) - covered
+    return exposed / total if total > 0 else None
+
+
+def measured_overlap_exposed(prof) -> Optional[float]:
+    """The wall-clock exposed-comm fraction of a ``torch.profiler``
+    capture (``prof``, CUDA activity on) of an overlapped step: over
+    the device kernels, the share of NCCL kernel time that no compute
+    kernel on another stream covers (:func:`exposed_comm_share`).  None
+    when the capture holds no NCCL kernel (world 1 runs none)."""
+    comm, compute = [], []
+    for e in _profiler.device_kernels(prof):
+        iv = (e.time_range.start, e.time_range.end,
+              getattr(e, "device_resource_id", None))
+        if _is_comm_kernel(e.name):
+            comm.append(iv)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            compute.append(iv)
+    return exposed_comm_share(comm, compute)
 
 
 class Candidate(NamedTuple):

@@ -36,6 +36,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from . import trace as _trace
+from .common import basics
 from .common.retry import env_int
 from .compression import Compression
 from .metrics import instruments as _metrics
@@ -54,9 +55,10 @@ def allreduce_gradients(grads: Any, op: ReduceOp = Average,
     then a division by the set's size in the gradients' dtype).  A
     floating sum adds the ranks in rank order, as the optimizers'
     buckets do, so the bits do not depend on the buckets."""
-    return collective_ops._allreduce_async(
-        grads, ReduceOp(op), prescale_factor, postscale_factor, process_set,
-        ordered=True).wait()
+    return collective_ops._submit(
+        None, "allreduce", grads, lambda: collective_ops._allreduce_async(
+            grads, ReduceOp(op), prescale_factor, postscale_factor,
+            process_set, ordered=True)).wait()
 
 
 def _unique(params: Iterable[torch.Tensor]) -> List[torch.Tensor]:
@@ -112,6 +114,9 @@ class _BucketReducer:
         #: per bucket of the last step: (bucket, parameters ready when it
         #: launched, launched from a hook)
         self.last_launches: List[Tuple[int, int, bool]] = []
+        #: the last step's launch record, in launch order, for
+        #: ``ops.comm_model.overlap_inventory``
+        self.last_record: Dict[str, Any] = {}
         self._reset()
         self._hook_handles = []
         if overlap:
@@ -126,6 +131,7 @@ class _BucketReducer:
         self._next = 0
         self._ready = 0
         self._launches: List[Tuple[int, int, bool]] = []
+        self._record: List[Dict[str, Any]] = []
 
     @property
     def pending(self) -> bool:
@@ -166,14 +172,20 @@ class _BucketReducer:
             flat /= self._predivide
         flat, ctx = self._compression.compress(flat)
         with _trace.span("overlap.bucket", bucket=b, params=len(idxs)):
-            works, result = collective_ops._allreduce_flat_async(
-                flat, self._op, self._group, self._n, self._me,
-                self._process_set, ordered=True)
+            handle = collective_ops._submit(
+                f"bucket.{b}", "allreduce", flat,
+                lambda: collective_ops.Handle(
+                    *collective_ops._allreduce_flat_async(
+                        flat, self._op, self._group, self._n, self._me,
+                        self._process_set, ordered=True)))
         # launch lead: parameters still awaiting gradients at this launch
-        _metrics.OVERLAP_LAUNCH_LEAD.observe(len(self.params) - self._ready)
-        self._handles[b] = (collective_ops.Handle(works, result), ctx,
-                            [g is not None for g in grads])
+        # (none once the backward is over)
+        pending = len(self.params) - self._ready if from_hook else 0
+        _metrics.OVERLAP_LAUNCH_LEAD.observe(pending)
+        self._handles[b] = (handle, ctx, [g is not None for g in grads])
         self._launches.append((b, self._ready, from_hook))
+        self._record.append({"bucket": b, "payload_bytes": flat.numel()
+                             * flat.element_size(), "pending": pending})
         self._next = b + 1
 
     def backward(self, loss: torch.Tensor) -> None:
@@ -204,6 +216,10 @@ class _BucketReducer:
                 if had:
                     p.grad = g if g.dtype == p.dtype else g.to(p.dtype)
         self.last_launches = self._launches
+        self.last_record = {"world": self._n, "buckets": self._record}
+        tl = basics._state.timeline
+        if tl is not None and basics._state.mark_cycles:
+            tl.instant("CYCLE")  # one gradient flush
         self._reset()
 
     def close(self) -> None:

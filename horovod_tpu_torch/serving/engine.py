@@ -41,8 +41,16 @@ Decoding is greedy (argmax of fp32 logits): batched decode over the
 paged cache emits token for token what one-at-a-time full-context
 decode emits, across admit/evict boundaries.
 
-Not ported: tensor sharding (``shards > 1`` raises) and the
-lowered-program views.
+The JAX engine's lowered-program views (``lowered_decode_text``,
+``lowered_mixed_text``) have no eager counterpart; their stand-ins,
+:meth:`ServingEngine.decode_step_inventory` and
+:meth:`ServingEngine.mixed_step_inventory`, run one step of the family
+under ``torch.profiler`` and report its kernels and the page bytes it
+gathered.  The decode step reads the pools in place through the paged
+kernel, so it gathers nothing, where the JAX decode program gathers
+every page it reads.
+
+Not ported: tensor sharding (``shards > 1`` raises).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from ..common.retry import env_float, env_int
 from ..metrics import instruments as _instr
 from ..models.transformer import Transformer, TransformerConfig
 from ..utils.logging import get_logger
+from ..utils.profiler import device_kernels
 from .kv_cache import (
     BlockAllocator, PagedKVState, blocks_for, make_pools, pool_bytes,
     snap_origin,
@@ -416,6 +425,77 @@ class ServingEngine:
     def program_count(self) -> int:
         """Distinct (kind, tier...) step keys booked so far."""
         return len(self._progs)
+
+    def decode_step_inventory(self, batch_tier: Optional[int] = None,
+                              pages: Optional[int] = None) -> dict:
+        """Stand-in for the JAX engine's ``lowered_decode_text``: run
+        ONE decode step (smallest tiers by default) with all-zero block
+        tables, so that every write lands in the trash block and no
+        sequence's pages change, under ``torch.profiler``.  Returns
+        ``{"kernels": {name: {"launches", "device_ms"}}, "gather_bytes",
+        "collectives": []}``: the step's device kernels (on the CPU, the
+        profiler's CPU events stand in for them), and the K/V bytes
+        :meth:`PagedKVState.gather` copied — 0 here, since the decode
+        kernel reads the pools in place (on the CPU its plain version
+        gathers inside the kernel's stand-in, which is not counted).
+        Serving on one device runs no collective."""
+        bt = batch_tier or self.decode_tiers[0]
+        pt = pages or self.page_tiers[0]
+        dev = self.device
+        tables = torch.zeros((bt, self.max_blocks_per_seq), dtype=torch.long,
+                             device=dev)
+        ones = torch.ones((bt,), dtype=torch.int32, device=dev)
+        last = torch.zeros((bt,), dtype=torch.long, device=dev)
+        return self._step_inventory(
+            lambda: self._decode_step(tables, ones, last, pt))
+
+    def mixed_step_inventory(self, batch_tier: Optional[int] = None,
+                             chunk_tier: Optional[int] = None,
+                             pages: Optional[int] = None) -> dict:
+        """Stand-in for the JAX engine's ``lowered_mixed_text``: ONE
+        mixed step (smallest batch and chunk tiers by default;
+        ``pages=None`` = the prefill-mixed ``max_blocks``-wide gather),
+        as :meth:`decode_step_inventory` runs its step.  Its
+        ``gather_bytes`` is ``batch_tier ×
+        modeled_decode_read_bytes(...)["gathered_bytes"]`` at the step's
+        page bound."""
+        bt = batch_tier or self.decode_tiers[0]
+        c = chunk_tier or self.chunk_tiers[0]
+        dev = self.device
+        tables = torch.zeros((bt, self.max_blocks_per_seq), dtype=torch.long,
+                             device=dev)
+        zeros = torch.zeros((bt,), dtype=torch.int32, device=dev)
+        ones = torch.ones((bt,), dtype=torch.int32, device=dev)
+        tokens = torch.zeros((bt, c), dtype=torch.long, device=dev)
+        return self._step_inventory(
+            lambda: self._mixed_step(tables, zeros, ones, tokens, pages))
+
+    def _step_inventory(self, run) -> dict:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if cuda else [])
+        last_logits = self._last_logits
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        before = PagedKVState.gather_bytes
+        with torch.inference_mode(), profile(activities=acts) as prof:
+            run()
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        gathered = PagedKVState.gather_bytes - before
+        self._last_logits = last_logits
+        events = (device_kernels(prof) if cuda else
+                  [e for e in prof.events() if e.device_type == DeviceType.CPU])
+        kernels: Dict[str, dict] = {}
+        for e in events:
+            k = kernels.setdefault(e.name, {"launches": 0, "device_ms": 0.0})
+            k["launches"] += 1
+            k["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        return {"kernels": kernels, "gather_bytes": gathered,
+                "collectives": []}
 
     def warmup(self) -> int:
         """Build the kernel library (on a card), book the WHOLE tier menu

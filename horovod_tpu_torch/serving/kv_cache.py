@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import ClassVar, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -412,7 +412,13 @@ class PagedKVState:
     tokens from its own offset ``lens[i]``).  ``gather_pages`` is the
     step's page bound (the engine's live page tier): it bounds the
     unwindowed :meth:`gather` copy and the pages a decode step reads.
+
+    ``PagedKVState.gather_bytes`` counts, process-wide, the K and V
+    bytes every :meth:`gather` has copied (shapes only: no sync); the
+    engine's step inventories read it around one step.
     """
+
+    gather_bytes: ClassVar[int] = 0
 
     k: torch.Tensor
     v: torch.Tensor
@@ -469,11 +475,13 @@ class PagedKVState:
         window (widened by ``q_span - 1`` for chunks) are gathered;
         without, ``gather_pages`` bounds the copy.  Decode steps read the
         pools in place instead (``flash_decode_paged``)."""
-        return _gather_pages(
+        k, v, kv_start = _gather_pages(
             self.k[layer], self.v[layer], self.tables, self.lens,
             window=window, q_span=q_span,
             max_pages=(self.gather_pages or None) if window is None
             else None)
+        PagedKVState.gather_bytes += 2 * k.numel() * k.element_size()
+        return k, v, kv_start
 
 
 def make_pools(num_layers: int, num_blocks: int, block_size: int,

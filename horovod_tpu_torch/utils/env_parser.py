@@ -1,4 +1,4 @@
-"""The fusion and overlap knobs, read from the environment.
+"""The fusion, overlap and timeline knobs, read from the environment.
 
 Copied from ``horovod_tpu/utils/env_parser.py`` for the knobs the port
 reads: each ``HVD_TPU_<NAME>`` falls back to the reference's
@@ -45,6 +45,13 @@ def _get_int_validated(name: str, default: int, minimum: int = 0) -> int:
     return value
 
 
+def _get_bool(name: str, default: bool) -> bool:
+    v = _get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
 @dataclasses.dataclass
 class Config:
     """The knobs (reference: horovod/common/utils/env_parser.cc)."""
@@ -55,6 +62,9 @@ class Config:
     overlap_bucket_bytes: int = 4 * 1024 * 1024  # HVD_TPU_OVERLAP_BUCKET_BYTES
     overlap_autotune_trials: int = 8  # HVD_TPU_OVERLAP_AUTOTUNE_TRIALS
     overlap_autotune_steps: int = 3  # HVD_TPU_OVERLAP_AUTOTUNE_STEPS
+    # Timeline (horovod/common/timeline.cc):
+    timeline_filename: str = ""  # HOROVOD_TIMELINE
+    timeline_mark_cycles: bool = False  # HOROVOD_TIMELINE_MARK_CYCLES
 
     @staticmethod
     def from_env() -> "Config":
@@ -67,4 +77,6 @@ class Config:
                 "OVERLAP_AUTOTUNE_TRIALS", 8, minimum=1),
             overlap_autotune_steps=_get_int_validated(
                 "OVERLAP_AUTOTUNE_STEPS", 3, minimum=1),
+            timeline_filename=_get("TIMELINE", "") or "",
+            timeline_mark_cycles=_get_bool("TIMELINE_MARK_CYCLES", False),
         )

@@ -47,9 +47,11 @@ def test_no_jax_imports_anywhere_in_the_port():
 def test_port_imports_and_serves_with_jax_blocked():
     """Every module imports, the engine serves (plain, speculative, and
     through a prefill→decode fleet), training steps run (the
-    transformer's and the ResNet's), ring attention runs (world 1), and
-    the guard, elastic and runner modules import and one guarded step
-    runs, with jax, flax, optax and horovod_tpu blocked outright."""
+    transformer's and the ResNet's), ring attention runs (world 1), the
+    guard, elastic and runner modules import and one guarded step runs,
+    and the bench, timeline, profiler bridge, cluster snapshot and step
+    inventories import and run, with jax, flax, optax and horovod_tpu
+    blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -150,6 +152,21 @@ def test_port_imports_and_serves_with_jax_blocked():
         "es = elastic.TpuState(model=gm, optimizer=go, step=1)\n"
         "es.sync()\n"
         "hvd.shutdown()\n"
+        "from horovod_tpu_torch import bench\n"
+        "from horovod_tpu_torch.utils import profiler, timeline\n"
+        "from horovod_tpu_torch.metrics import aggregate\n"
+        "from horovod_tpu_torch.ops import overlap\n"
+        "import os\n"
+        "hvd.init(device='cpu')\n"
+        "tp = os.path.join(tempfile.mkdtemp(), 't.json')\n"
+        "hvd.start_timeline(tp)\n"
+        "hvd.allreduce(torch.ones(2), name='blocked')\n"
+        "hvd.stop_timeline()\n"
+        "assert 'blocked' in open(tp).read()\n"
+        "assert aggregate.cluster_snapshot()['ranks'] == 1\n"
+        "hvd.shutdown()\n"
+        "assert eng.decode_step_inventory()['gather_bytes'] == 0\n"
+        "assert eng.mixed_step_inventory()['gather_bytes'] > 0\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
         "    m == 'horovod_tpu' or m.startswith('horovod_tpu.')\n"
         "    for m, v in sys.modules.items() if v is not None)\n"
@@ -206,6 +223,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert ResNetTiny(device="cpu").head.kernel.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, params, role="prefill")
+    from horovod_tpu_torch import bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--batch", "2"])
+    assert not hvd.is_initialized()
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
