@@ -24,13 +24,16 @@ if any fails:
      K/V (llama3_8b heads 32/8 at D=128, an MHA case at D=64, a windowed
      case with nonzero ``kv_start``, decode pad slots and chunk rows
      placed before their first key, which must come back exactly zero
-     with the -1e30 log-sum-exp sentinel; bf16 and fp32);
+     with the -1e30 log-sum-exp sentinel; bf16 and fp32); the chunk and
+     verify cases again at one rank's head slice of tensor-sharded
+     serving (``SHARD_HEADS``: 16/4 and 8/2, bf16);
    - the paged decode (serving's decode steps, ``csrc/flash_decode.cu``):
      the decode shapes read through block tables of 16-token pages
      scattered in a pool twice the live size (GQA bf16 and fp32, MHA
      D=64, a window of 256, pad rows exactly zero), each also giving the
      same bits on a second call, timed beside SDPA on the
-     already-gathered K/V and beside the gather plus SDPA;
+     already-gathered K/V and beside the gather plus SDPA; the GQA case
+     again at the sharded head slices 16/4 and 8/2;
    - the training kernels — the uniform-offset forward (out and lse),
      dQ, and dK/dV: gpt_small's shape (B=8, S=2048, 12 heads of 64; the
      main path's), llama3_8b's attention (32/8 heads, D=128, S=4096,
@@ -82,6 +85,30 @@ if any fails:
    time by kernel class) and 8 profiled decode steps alone; then the
    engine's step inventories (:func:`serving_views`, part (e) of the
    observe phase);
+4a. tp: tensor-sharded serving on ONE card: two ranks, one process each
+   on the card over gloo (NCCL refuses two ranks on one GPU), each
+   holding half of llama3_8b's heads and MLP and of the pool
+   (``ServingEngine(shards=2)``, the weights drawn as the serving
+   phase's and sliced leaf by leaf), serve the serving phase's waves:
+   every request completes on both ranks with identical streams
+   (``check_agreement``), equal to the serving phase's tie-aware
+   (``BF16_TIE_REL``); each mixed step launches the sm90 forward and
+   each decode step the paged decode 32 times a rank, at 16/4 heads;
+   the first tokens' logits match a dense forward;
+   ``SERVE_SHARD_PSUM_BYTES`` grows by exactly the modeled sum over the
+   steps' shapes, which the all-reduces' payloads give too; per-rank
+   parameter bytes the replicated leaves' plus half the sliced ones';
+   the engine is handed the full tree on the card (the serving phase's
+   draws) and keeps copies of its slices: per-rank parameter storage
+   (each storage once) is the replicated leaves' plus half the sliced
+   ones'; each step's intake broadcast is timed; then the 2-layer fp32
+   oracle at shards 2 against one-at-a-time dense decode; then
+   ``ulysses_attention(impl="flash")`` over the two ranks (gloo's
+   all-to-all) at gpt_small's attention, a global 8192 tokens, forward
+   and backward: each rank's output and gradients against its rows of
+   one ``flash_attention`` over the whole sequence, one launch of each
+   training kernel a rank.  Gloo stages each collective through the
+   host: its times are no tensor- or sequence-parallel measurement;
 5. oracle: llama3_8b width, 2 layers, fp32 — greedy streams through the
    engine (the CUDA-core forward on mixed steps, the paged decode on
    decode steps), through a speculative engine (``spec_k=4``, the
@@ -190,6 +217,20 @@ if any fails:
    each kernel and variant (``ring_blocks``: every diagonal, and each
    later block but a causal ring's future ones), the schedule's time
    beside the single call's;
+14a. parallel: the rest of ``parallel/`` on one card at world 1:
+   gpt_small's widths (B=8 x S=2048, bf16 over fp32 masters, AdamW)
+   through ``MultiAxisTransformer("ring_flash")`` and
+   ``make_sharded_train_step`` at the mesh (1, 1, 1), TRAIN_STEPS steps:
+   losses finite and falling, 12 launches of each training kernel a
+   step; as a side check (not a main path: no all-to-all), Ulysses's
+   local attention replayed at n = 2 and 4 on gpt_small's attention at
+   a global 8192 tokens (rank j's attention is head chunk j over the
+   whole sequence) against one ``flash_attention`` (outputs and
+   gradients, n launches of each kernel, times);
+   ``ExpertParallelMoe`` (8 experts at gpt_small's width, ep = 1,
+   16 k tokens) forward and backward against a dense gated reference;
+   ``pipeline_apply`` at pp = 1 over gpt_small's 12 blocks, M = 8,
+   against the blocks run microbatch by microbatch;
 15. ring4 (four cards; not in the default run): ``ring_flash_attention``
    over NCCL on the ring phase's cases, every rank's output and
    gradients bit-equal to the replay of the same ring on its own card;
@@ -199,6 +240,17 @@ if any fails:
    ``data_parallel_train_step``, 10 steps: losses equal on every rank,
    finite and falling, each rank's launches a step those of its place
    on the ring; tokens/s, step time, peak memory;
+15a. tp4 (four cards; not in the default run): llama3_8b served over
+   NCCL at shards 1, 2 (two engines: ranks 0-1 and 2-3) and 4, each
+   with the tp phase's checks, the streams equal to shards 1's and
+   across the ranks; decode tokens/s, TTFT p50, per-rank peak memory,
+   the intake broadcast's host ms a step and, alone, a burst of the
+   step's 64 all-reduces of each; the dp x sp x tp trainer at
+   (1, 2, 2), ``ulysses`` and ``ring_flash``, at gpt_small's widths
+   (step time, tokens/s); ``ulysses_attention(impl="flash")`` over
+   NCCL at n = 4 as in the tp phase; MoE at ep = 4 (each rank its own
+   tokens); the pipeline at pp = 4 (gpt_small's 12 blocks as 4 stages
+   of 3, M = 8);
 16. dp4 (four cards; not in the default run, which needs one): gpt_small
    data-parallel training over NCCL, four ranks each on its own seeded
    B=8 x S=2048 batch, through the plain, overlapped and ZeRO steps of
@@ -248,11 +300,11 @@ if any fails:
    overlapped step (``measured_overlap_exposed`` of the NCCL kernels)
    and the four ranks take a ``cluster_snapshot``.
 
-Each main path (serving, spec, disagg, training, overlap, zero, remat,
-resnet, pipeline, ring, ring4, guard, elastic, observe's bench runs) is
-driven with the kernels' launch counts set to 0 just before it and read
-just after (the elastic workers count in their own processes, per
-step).  The card's
+Each main path (serving, tp, spec, disagg, training, overlap, zero,
+remat, resnet, pipeline, ring, parallel, ring4, tp4, guard, elastic,
+observe's bench runs) is driven with the kernels' launch counts set to
+0 just before it and read just after (the elastic, tp and tp4 workers
+count in their own processes).  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -263,12 +315,14 @@ decode at serving's decode, the sm90 dq and dkv at gpt_small's bf16
 backward, the simt ones at gpt_small's fp32 backward (their path: the
 fp32 training oracle),
 the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
-the sm90 forward launches summed over the serving, spec, disagg,
-training, overlap, zero, remat, guard and elastic runs, the paged
-decode's over the serving, spec and disagg runs, dq and dkv over the
-training, overlap, zero, remat, guard and elastic runs, the fused-norm
-launches over the resnet, pipeline and observe (two bench runs) runs; the six ``*_kv_offset`` entries (the forward, dq and
-dkv at a non-zero offset, each variant) at the ring's own past-block
+the sm90 forward launches summed over the serving, tp (both ranks),
+spec, disagg, training, overlap, zero, remat, parallel, guard and
+elastic runs (and tp4's), the paged decode's over the serving, tp, spec
+and disagg runs (and tp4's), dq and dkv over the training, overlap,
+zero, remat, parallel, guard and elastic runs (and tp4's), the
+fused-norm launches over the resnet, pipeline and observe (two bench
+runs) runs; the six ``*_kv_offset`` entries (the forward, dq and dkv at
+a non-zero offset, each variant) at the ring's own past-block
 call at gpt_small's shard, their launches the ring phase's (and
 ring4's);
 null where ``--phases`` left that phase out);
@@ -276,13 +330,15 @@ the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 ``--phases`` runs a subset (e.g. ``--phases kernels,training``; overlap
 and zero run training first, whose losses they are held against); the
-default runs all but dp4 and ring4.
+default runs all but dp4, ring4 and tp4 (``tp`` runs the serving phase
+first: its streams are the reference).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -648,6 +704,10 @@ def run_paged_case(case):
     return rec
 
 
+#: (query heads, kv heads, shards) of one rank of llama3_8b's attention
+#: under tensor-sharded serving
+SHARD_HEADS = ((16, 4, 2), (8, 2, 4))
+
 #: the verify case's row offsets: the serving prompts' lengths (16, 100,
 #: 300, 480, 700, 64, 286, 456) plus 15 generated tokens
 VERIFY_Q_STARTS = [31, 115, 315, 495, 715, 79, 301, 471]
@@ -700,6 +760,15 @@ def phase_kernels():
     cases.append(make_case(
         "verify_gqa_bf16", b=8, c=8, h=32, h_kv=8, d=128, s=1024, dtype=bf,
         q_starts=VERIFY_Q_STARTS))
+    # one rank's head slice of tensor-sharded serving (the tp phases):
+    # llama3_8b's 32/8 heads cut 2 ways (16/4) and 4 ways (8/2)
+    for h, h_kv, shards in SHARD_HEADS:
+        cases.append(make_case(
+            f"chunk_gqa_shard{shards}_bf16", b=8, c=256, h=h, h_kv=h_kv,
+            d=128, s=4096, dtype=bf, q_starts=starts))
+        cases.append(make_case(
+            f"verify_gqa_shard{shards}_bf16", b=8, c=8, h=h, h_kv=h_kv,
+            d=128, s=1024, dtype=bf, q_starts=VERIFY_Q_STARTS))
     pad_lens = [0, 5, 0, 300, 0, 1, 0, 4096]
     cases.append(make_case(
         "decode_pad_rows_bf16", b=8, c=1, h=32, h_kv=8, d=128, s=4096,
@@ -724,6 +793,10 @@ def phase_kernels():
     paged.append(make_paged_case(
         "decode_paged_pad_rows_bf16", b=8, h=32, h_kv=8, d=128, dtype=bf,
         kv_lens=pad_lens))
+    for h, h_kv, shards in SHARD_HEADS:
+        paged.append(make_paged_case(
+            f"decode_paged_gqa_shard{shards}_bf16", b=8, h=h, h_kv=h_kv,
+            d=128, dtype=bf, kv_lens=ctx))
     for case in paged:
         recs.append(run_paged_case(case))
         del case
@@ -1608,6 +1681,7 @@ def phase_serving():
                                     / sum(d for _, d in dec)),
                pool_gb=eng.pool_bytes / 1e9, peak_mem_gb=peak_gb)
     log("  serving: " + json.dumps(rec))
+    rec["streams"] = [out[r].tolist() for r in prompts]  # the tp phase's
     rec["profile"] = profile_wave(eng, list(prompts.values()))
     rec["views"] = serving_views(eng)
     del eng
@@ -1943,7 +2017,7 @@ def oracle_drafter(prompts, streams, vocab):
 BF16_TIE_REL = 0.1
 
 
-def tie_aware_equal(model, prompt, got, want, what):
+def tie_aware_equal(model, prompt, got, want, what, verbose=True):
     """``got`` equals ``want``, or at their first difference both tokens'
     logits in a dense cache-free forward lie within ``BF16_TIE_REL`` of
     its largest |logit| below its maximum (so its top-2 gap does too).
@@ -1964,7 +2038,8 @@ def tie_aware_equal(model, prompt, got, want, what):
     top = float(logits.max())
     below = [top - float(logits[int(t)]) for t in (got[i], want[i])]
     bound = BF16_TIE_REL * float(logits.abs().max())
-    log(f"  {what}: streams fork at token {i} ({int(got[i])} vs "
+    (log if verbose else _quiet)(
+        f"  {what}: streams fork at token {i} ({int(got[i])} vs "
         f"{int(want[i])}), their dense logits {below[0]:.4g} and "
         f"{below[1]:.4g} below the maximum (bound {bound:.4g})")
     assert max(below) < bound, \
@@ -4796,9 +4871,893 @@ def phase_observe(serving=None, device="cuda", preset="gpt_small", b=TRAIN_B,
     return rec
 
 
-PHASES = ("kernels", "serving", "oracle", "spec", "disagg", "training",
-          "overlap", "zero", "training_oracle", "remat", "resnet",
-          "resnet_oracle", "pipeline", "ring", "guard", "elastic", "observe")
+# -- phases tp and tp4: tensor-sharded serving -------------------------------
+
+#: the tp phase's ranks share one card: NCCL refuses two ranks on one
+#: GPU, so they run over gloo, whose all-reduce stages through the host
+TP_SHARDS = 2
+
+
+def _storage_bytes(tensors):
+    """Device bytes the tensors' storages hold, each storage once: a
+    view of a larger tensor counts that tensor's whole storage."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def _time_intake(eng):
+    """Wrap a sharded engine's per-step intake broadcast (an instance
+    attribute, removed by ``del``) to record each call's host seconds:
+    the header broadcast, its ``.tolist()`` and any request objects."""
+    times = []
+    intake = eng._sync_intake
+
+    def timed(idle):
+        t0 = time.perf_counter()
+        now = intake(idle)
+        times.append(time.perf_counter() - t0)
+        return now
+
+    eng._sync_intake = timed
+    return times
+
+
+def allreduce_burst(mesh, device, cfg, batch=8, reps=10):
+    """A sharded decode step's all-reduces alone: 2 x num_layers
+    back-to-back tensor-parallel sums (``tensor_parallel._all_reduce``,
+    the engine's) of a (batch, 1, d_model) activation over ``mesh``,
+    then one sync; the median and least of ``reps`` bursts (after one
+    more) in ms, on the host's clock."""
+    import torch
+
+    from horovod_tpu_torch.parallel.tensor_parallel import _all_reduce
+
+    x = torch.ones((batch, 1, cfg.d_model), dtype=cfg.dtype, device=device)
+    times = []
+    for _ in range(reps + 1):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(2 * cfg.num_layers):
+            _all_reduce(x, mesh)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    steady = sorted(times[1:])
+    return dict(count=2 * cfg.num_layers,
+                payload_bytes=x.numel() * x.element_size(),
+                ms_median=1e3 * steady[len(steady) // 2],
+                ms_min=1e3 * steady[0])
+
+
+def _step_shapes(eng):
+    """Wrap ``eng``'s step functions (instance attributes, removed by
+    ``del``) to record each step's (batch tier, query width)."""
+    shapes = []
+    mixed, decode = eng._mixed_step, eng._decode_step
+
+    def m(tables, lens, chunk_lens, tokens, pages=None):
+        shapes.append(tuple(tokens.shape))
+        return mixed(tables, lens, chunk_lens, tokens, pages)
+
+    def d(tables, lens, last_tok, pages):
+        shapes.append((last_tok.shape[0], 1))
+        return decode(tables, lens, last_tok, pages)
+
+    eng._mixed_step, eng._decode_step = m, d
+    return shapes
+
+
+def serve_sharded(cfg, shards, mesh, device, want=None, check=True,
+                  seed=SEED, in_turn=False):
+    """llama3_8b's serving run at ``shards``: the serving phase's engine
+    config and two waves (8 prompts, 32 new tokens), on this rank of
+    ``mesh``.  The engine is handed the FULL tree (``init_params`` from
+    ``seed`` on the card: the serving phase's weights), keeps copies of
+    its slices, and the full tree is then freed (``in_turn``: one rank
+    of the set after the other, for ranks that share a card).  Checks
+    every request
+    completes, each mixed step launches
+    the sm90 forward and each decode step the paged decode once a layer
+    (at this rank's H/shards heads), the first tokens' logits against a
+    dense forward, the ``SERVE_SHARD_PSUM_BYTES`` delta against the
+    modeled sum over the steps' shapes and against the all-reduces'
+    payloads booked in ``COLLECTIVE_BYTES``, the per-rank parameter
+    storage bytes (each storage once), and the streams against ``want``
+    (the serving phase's, tie-aware); with ``check`` every step's tokens
+    are held equal across the ranks as they are taken
+    (``check_agreement``: one broadcast a step).  Records the host time
+    of each step's intake broadcast.  Returns its record and the
+    streams."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import trace
+    from horovod_tpu_torch.metrics import instruments as instr
+    from horovod_tpu_torch.models import init_params
+    from horovod_tpu_torch.models.transformer import param_shapes
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops.comm_model import modeled_serve_psum_bytes
+    from horovod_tpu_torch.parallel import tensor_parallel
+    from horovod_tpu_torch.serving import ServeConfig, ServingEngine
+    from horovod_tpu_torch.serving.engine import _allreduce_totals
+
+    cuda = device.type == "cuda"
+    full = param_shapes(cfg)
+    dims = tensor_parallel.transformer_shard_specs(dict.fromkeys(full))
+    el = torch.empty((), dtype=cfg.dtype).element_size()
+    numel = lambda s: math.prod(s)  # noqa: E731
+    rep_bytes = sum(numel(s) * (4 if k.endswith(".scale") else el)
+                    for k, (s, _d) in full.items() if dims[k] is None)
+    cut_bytes = sum(numel(s) * el for k, (s, _d) in full.items()
+                    if dims[k] is not None)
+    me = 0 if mesh is None else mesh.rank_in_set(_world_rank())
+    for turn in range(shards if in_turn else 1):
+        if in_turn and turn != me:
+            dist.barrier(group=mesh.group)
+            continue
+        params = init_params(
+            cfg, torch.Generator(device.type).manual_seed(seed),
+            device=device)
+        eng = ServingEngine(cfg, params, serve=ServeConfig(
+            block_size=16, decode_tiers=(1, 2, 4, 8), prefill_chunk=256),
+            device=device, mesh=mesh if shards > 1 else None)
+        del params  # sharded: the engine holds copies of its slices alone
+        if cuda:  # give the full tree's blocks back to the card
+            torch.cuda.empty_cache()
+        if in_turn:
+            dist.barrier(group=mesh.group)
+    # this rank's heads: H/shards query and H_kv/shards kv heads, the
+    # pool's pages at its kv slice
+    assert eng.model.layer_0.attn.q.kernel.shape[1] == \
+        cfg.num_heads // shards
+    assert eng.k_pool.shape[3] == cfg.kv_heads // shards
+    rank_bytes = _storage_bytes(eng.model.parameters())
+    assert rank_bytes == rep_bytes + cut_bytes // shards, (
+        rank_bytes, rep_bytes, cut_bytes)
+    eng.check_agreement = check and shards > 1
+    eng.warmup()
+    eng.first_logits, eng.token_log = {}, []
+    waves = serving_waves(cfg.vocab_size)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    since = trace.now()
+    per_step = _count_step_launches(eng)
+    shapes = _step_shapes(eng)
+    _reset_attention_counts()
+    intake = _time_intake(eng) if shards > 1 else []
+    psum0 = instr.SERVE_SHARD_PSUM_BYTES.get()
+    red0 = _allreduce_totals()
+    steps0 = eng.steps
+    prompts = {}
+    t0 = time.perf_counter()
+    for wave in waves:
+        for p in wave:
+            prompts[eng.submit(p, max_new_tokens=32)] = p
+        out = eng.run()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng._decode_step, eng._mixed_step
+    if shards > 1:
+        del eng._sync_intake
+    steps = eng.steps - steps0
+    launches = _attention_counts()
+    assert sorted(out) == sorted(prompts), "not every request completed"
+    assert all(len(out[r]) == 32 for r in prompts), "short stream"
+    n = cfg.num_layers
+    per_kind = _per_kind(per_step, _kinds_since(since))
+    step_kinds = {k: sum(1 for x in per_kind if x[0] == k)
+                  for k in ("mixed", "decode")}
+    if cuda:  # n sm90 forwards a mixed step, n paged decodes a decode one
+        _check_step_launches(per_kind, n, ("mixed", "decode"))
+    assert step_kinds["mixed"] > 0 and step_kinds["decode"] > 0, step_kinds
+    psum = instr.SERVE_SHARD_PSUM_BYTES.get() - psum0
+    modeled = sum(modeled_serve_psum_bytes(
+        bt, q, cfg.d_model, n, shards, cfg.dtype)["stream_bytes"]
+        for bt, q in shapes)
+    calls, payload = (int(a - b) for a, b in zip(_allreduce_totals(), red0))
+    assert len(shapes) == steps
+    assert psum == modeled == eng.shard_psum_bytes, (psum, modeled)
+    assert calls == (2 * n * steps if shards > 1 else 0), (calls, steps)
+    assert payload * 2 * (shards - 1) // shards == psum, (payload, psum)
+    worst = 0.0
+    with torch.inference_mode():
+        for rid, p in prompts.items():
+            toks = torch.as_tensor(p, dtype=torch.long, device=device)[None]
+            dense = eng.model(toks)[0, -1].float().cpu()
+            rel = float((eng.first_logits[rid] - dense).abs().max()
+                        / dense.abs().max())
+            worst = max(worst, rel)
+    assert worst <= 5e-2, f"first-token logits disagree: {worst}"
+    streams = [out[r].tolist() for r in prompts]
+    forks = []
+    if want is not None:
+        for i, (p, got) in enumerate(zip(prompts.values(), streams)):
+            forks.append(tie_aware_equal(
+                eng.model, p, got, want[i], f"shards={shards} request {i}",
+                verbose=_world_rank() == 0))
+    ttft = sorted(s - a for s, a in _first_tokens(eng))
+    dec = [(args["batch"], dur) for site, _t, dur, args, _tid
+           in trace.snapshot(since)
+           if site == "serve.step" and args and args["kind"] == "decode"]
+    gen = sum(len(v) for v in out.values())
+    rec = dict(shards=shards, requests=len(out), steps=steps,
+               step_kinds=step_kinds, launches=launches,
+               psum_bytes=psum, modeled_psum_bytes=modeled,
+               allreduce_calls=calls, allreduce_payload_bytes=payload,
+               rank_param_bytes=rank_bytes,
+               full_param_bytes=rep_bytes + cut_bytes,
+               pool_bytes_per_rank=eng.pool_bytes_per_shard,
+               first_logits_rel=worst, forks=forks,
+               ttft_p50_s=ttft[len(ttft) // 2], tokens=gen, wall_s=wall,
+               tokens_per_s=gen / wall,
+               decode_tokens_per_s=(sum(b for b, _ in dec)
+                                    / sum(d for _, d in dec)),
+               decode_step_ms=1e3 * sum(d for _, d in dec) / len(dec),
+               step_wall_ms=1e3 * wall / steps,
+               intake_calls=len(intake),
+               intake_ms_mean=1e3 * sum(intake) / len(intake)
+               if intake else None,
+               intake_share=sum(intake) / wall,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+               if cuda else None)
+    del eng
+    gc.collect()  # the engine's scheduler closure holds it in a cycle
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec, streams
+
+
+def oracle_sharded(shards, mesh, device):
+    """phase_oracle's plain engine at ``shards``: llama3_8b width, 2
+    layers, fp32; the greedy streams against one-at-a-time dense decode
+    of the same sharded model (tie-aware at 1e-4)."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models import init_params, llama3_8b
+    from horovod_tpu_torch.serving import ServeConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama3_8b(num_layers=2, dtype=torch.float32)
+    eng = ServingEngine(cfg, init_params(
+        cfg, torch.Generator(device.type).manual_seed(SEED + 1),
+        device=device), serve=ServeConfig(
+        block_size=16, decode_tiers=(1, 2, 4), prefill_chunk=32),
+        device=device, mesh=mesh)
+    eng.check_agreement = True
+    rs = np.random.RandomState(SEED + 1)
+    prompts = [rs.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 23, 40, 61)]
+    n_new = 12
+    ids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    out = eng.run()
+    compared = 0
+    with torch.inference_mode():
+        for i, p in enumerate(prompts):
+            toks = list(p)
+            for j in range(n_new):
+                x = torch.as_tensor(toks, dtype=torch.long,
+                                    device=device)[None]
+                logits = eng.model(x)[0, -1].float()
+                top2 = torch.topk(logits, 2).values
+                if float(top2[0] - top2[1]) < 1e-4:
+                    break  # a near-tie: the rest may fork
+                t = int(torch.argmax(logits))
+                assert int(out[ids[i]][j]) == t, (
+                    f"shards={shards} oracle request {i} token {j}: "
+                    f"{int(out[ids[i]][j])} != {t}")
+                compared += 1
+                toks.append(t)
+    assert compared >= len(prompts) * n_new // 2, "too few tokens compared"
+    del eng
+    return dict(shards=shards, compared=compared,
+                of=len(prompts) * n_new)
+
+
+def tiny_serving_cfg():
+    """A CPU rehearsal's stand-in for llama3_8b: two layers of 8/4
+    heads of 8, long enough for the serving waves."""
+    import torch
+
+    from horovod_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab_size=256, num_layers=2, num_heads=8,
+                             num_kv_heads=4, head_dim=8, max_seq_len=1024,
+                             dtype=torch.float32)
+
+
+def _quiet(*_a):
+    pass
+
+
+def _world_rank():
+    import horovod_tpu_torch as hvd
+
+    return hvd.rank()
+
+
+TP_WORKER = r"""
+import json, sys
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import llama3_8b
+from horovod_tpu_torch.parallel import tensor_shard_mesh
+import chip_smoke as cs
+
+rank, world, store, out, given, device = sys.argv[1:7]
+rank, world = int(rank), int(world)
+cpu = device == "cpu"
+if cpu:
+    torch.set_num_threads(1)
+# every rank on the one card (or the CPU), over gloo
+hvd.init(device="cpu" if cpu else "cuda:0", rank=rank, size=world,
+         init_method="file://" + store, backend="gloo")
+dev = hvd.device()
+with open(given) as f:
+    want = json.load(f)
+mesh = tensor_shard_mesh("tp", world)
+cfg = cs.tiny_serving_cfg() if cpu else llama3_8b(dtype=torch.bfloat16)
+rec, streams = cs.serve_sharded(cfg, world, mesh, dev, want=want["streams"],
+                                in_turn=True)
+rec["oracle"] = None if cpu else cs.oracle_sharded(world, mesh, dev)
+rec["streams"] = streams
+# Ulysses through its entry point: gloo's all-to-all on the card
+rec["ulysses"] = cs.ulysses_run(hvd.global_process_set, dev,
+                                **(cs.ULYSSES_CPU if cpu else {}))
+with open(out, "w") as f:
+    json.dump(rec, f)
+hvd.shutdown()
+"""
+
+
+def _spawn(code, world, args, timeout, tag):
+    """Run ``code`` in ``world`` processes (argv: rank, world, store,
+    output, *args) from the checkout's root; returns each rank's JSON
+    output."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(r), str(world),
+             os.path.join(tmp, "store"), outs[r],
+             *[a(tmp) if callable(a) else str(a) for a in args]],
+            cwd=HERE, env=env) for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert rcs == [0] * world, f"{tag} ranks exited {rcs}"
+        recs = []
+        for o in outs:
+            with open(o) as f:
+                recs.append(json.load(f))
+    return recs
+
+
+def phase_tp(serving, device="cuda", timeout=900):
+    """Tensor-sharded serving on ONE card (module docstring, phase tp):
+    two ranks, one process each over gloo, llama3_8b at full width
+    sharded two ways through ``ServingEngine(shards=2)``; the serving
+    phase's streams are the reference; then ``ulysses_attention(impl=
+    "flash")`` over the two ranks (gloo's all-to-all).  Gloo stages each
+    collective through the host, so the times are no tensor- or
+    sequence-parallel measurement."""
+    free_gb = None
+    if device == "cuda":
+        import torch
+
+        from horovod_tpu_torch.ops import _build
+
+        _build.build_all()
+        # the ranks share this card, each holding the full tree while its
+        # engine is built: give back what earlier phases left (an engine
+        # stays alive in a reference cycle until collected)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    want = serving["streams"] if serving else None
+
+    def given(tmp):
+        path = os.path.join(tmp, "given.json")
+        with open(path, "w") as f:
+            json.dump({"streams": want}, f)
+        return path
+
+    recs = _spawn(TP_WORKER, TP_SHARDS, [given, device], timeout, "tp")
+    assert recs[0]["streams"] == recs[1]["streams"], "ranks' streams differ"
+    rec = {k: v for k, v in recs[0].items()
+           if k not in ("streams", "ulysses")}
+    rec["rank_peak_mem_gb"] = [r["peak_mem_gb"] for r in recs]
+    rec["card_free_gb_before"] = free_gb
+    rec["launches"] = {k: sum(r["launches"][k] for r in recs)
+                       for k in recs[0]["launches"]}
+    rec["ulysses"] = [r["ulysses"] for r in recs]
+    rec["ulysses_launches"] = {k: sum(r["ulysses"]["launches"][k]
+                                      for r in recs) for k in TRAIN_COUNTS}
+    rec["note"] = ("two ranks on one card over gloo: the collectives "
+                   "stage through the host; no tensor- or sequence-"
+                   "parallel time")
+    log("  tp: " + json.dumps(rec))
+    return rec
+
+
+# -- phase parallel: the rest of parallel/ on one card ------------------------
+
+ULYSSES_S = 8192
+ULYSSES_N = (2, 4)
+#: ``ulysses_run``'s shape in a CPU rehearsal
+ULYSSES_CPU = dict(b=2, s=64, h=4, d=8)
+MOE_EXPERTS = 8
+PIPE_M = 8
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def multi_axis_run(dims, impl, device, preset="gpt_small", b=TRAIN_B,
+                   s=TRAIN_S, steps=TRAIN_STEPS):
+    """``preset``'s widths through ``MultiAxisTransformer`` (bf16 over
+    fp32 masters, AdamW at optax's defaults, ``init_sharded`` from SEED)
+    and ``make_sharded_train_step`` on this rank of the ``dims`` mesh,
+    ``steps`` steps on one seeded global B x S batch (this rank's
+    (B/dp, S/sp) slice): losses, the training kernels' launches a step,
+    step times."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import transformer as tm
+    from horovod_tpu_torch.parallel import sharded as sh
+
+    cfg = getattr(tm, preset)()
+    cpu = device.type == "cpu"
+    mesh = sh.multi_axis_mesh(*dims)
+    model = sh.MultiAxisTransformer(
+        cfg.vocab_size, cfg.d_model, cfg.num_heads, cfg.num_layers, s,
+        dtype=torch.float32 if cpu else torch.bfloat16,
+        attention_impl=impl, mesh=mesh, device=device)
+    sh.init_sharded(model, seed=SEED)
+    opt, _specs = sh.init_opt_sharded(_adamw, model)
+    step = sh.make_sharded_train_step(model, opt, mesh)
+    state = training.create_train_state(model, opt)
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               size=(b, s + 1))
+    bl, sl = b // mesh.dp, s // mesh.sp
+    rows = slice(mesh.dp_idx * bl, (mesh.dp_idx + 1) * bl)
+    cols = slice(mesh.sp_idx * sl, (mesh.sp_idx + 1) * sl)
+    x = torch.as_tensor(toks[rows, :-1][:, cols], device=device)
+    y = torch.as_tensor(toks[rows, 1:][:, cols], device=device)
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    losses, per_step, times = [], [], []
+    for _ in range(steps):
+        before = _train_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        per_step.append([a - c for a, c in zip(_train_counts(), before)])
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    n_params = sum(p.numel() for p in model.parameters())
+    steady = times[1:]
+    rec = dict(mesh=list(dims), impl=impl, batch=[b, s], losses=losses,
+               step_s=times, step_ms_mean=1e3 * sum(steady) / len(steady),
+               step_ms_median=1e3 * sorted(steady)[len(steady) // 2],
+               tokens_per_s=b * s / (sum(steady) / len(steady)),
+               rank_params=n_params, per_step=per_step,
+               launches=dict(zip(TRAIN_COUNTS, _train_counts())),
+               peak_mem_gb=None if cpu
+               else torch.cuda.max_memory_allocated() / 1e9)
+    del state, step, model, opt
+    gc.collect()  # the reducer's hooks hold the parameters in a cycle
+    return rec
+
+
+def ulysses_run(ps, device, b=TRAIN_B, s=ULYSSES_S, h=12, d=64):
+    """``ulysses_attention(q, k, v, process_set=ps, impl="flash")``, the
+    entry point with its two all-to-alls, forward and backward, this
+    rank holding its S/n rows of a global ``s`` tokens of gpt_small's
+    attention shape (B=8, 12 heads of 64; the inputs seeded alike on
+    every rank): its output and (dq, dk, dv) against its rows of one
+    ``flash_attention`` over the whole sequence and every head on this
+    card, within RING_TOL (and whether bit-equal); the training
+    kernels' counts set to 0 just before the call and read just after
+    (one launch of each a rank, on H/n heads); the call's time beside
+    the single call's."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import ulysses_attention
+
+    cuda = device.type == "cuda"
+    n, me = ps.size(), ps.rank_in_set(_world_rank())
+    dtype = torch.bfloat16 if cuda else torch.float32
+    q, k, v, do = _ring_inputs(b, s, h, h, d, dtype, device=device)
+    rows = slice(me * s // n, (me + 1) * s // n)
+
+    def run(fn, ins, dout):
+        xs = [t.clone().requires_grad_() for t in ins]
+        o = fn(*xs)
+        o.backward(dout)
+        return [o.detach()] + [t.grad for t in xs]
+
+    def call():
+        return run(lambda *xs: ulysses_attention(*xs, process_set=ps,
+                                                 impl="flash"),
+                   [t[:, rows] for t in (q, k, v)], do[:, rows])
+
+    def single():
+        return run(fa.flash_attention, (q, k, v), do)
+
+    _sync(device)
+    _reset_train_counts()
+    got = call()
+    _sync(device)
+    launches = dict(zip(TRAIN_COUNTS, _train_counts()))
+    want = [t[:, rows] for t in single()]
+    tol = RING_TOL[str(dtype).split(".")[-1]]
+    errs = [float((a.float() - w.float()).abs().max()) for a, w in
+            zip(got, want)]
+    bits = [bool(torch.equal(a, w)) for a, w in zip(got, want)]
+    assert max(errs) <= tol, f"ulysses_attention n={n}: {errs} > {tol}"
+    if cuda:
+        assert launches["flash_fwd_sm90"] == 1 and \
+            launches["flash_bwd_dq_sm90"] == 1 and \
+            launches["flash_bwd_dkv_sm90"] == 1, launches
+    rec = dict(n=n, rank=me, shape=[b, s, h, d], errors=errs,
+               bit_equal=bits, launches=launches)
+    if cuda:
+        rec["ms"] = cuda_ms(call, reps=3)
+        rec["single_ms"] = cuda_ms(single, reps=3)
+    return rec
+
+
+def ulysses_replay(n, device, b=TRAIN_B, s=ULYSSES_S, h=12, d=64):
+    """A side check, not a main path: ``ulysses_attention(impl=
+    "flash")``'s local attention replayed for n ranks on one card (rank
+    j's is ``flash_attention`` over the WHOLE sequence on head chunk j),
+    with no all-to-all: the n calls (forward and backward) against one
+    ``flash_attention`` over every head, on gpt_small's attention shape
+    (B=8, 12 heads of 64) at a global ``s`` tokens: outputs and
+    gradients within RING_TOL (and whether bit-equal), n launches of each
+    kernel, the replay's time beside the single call's.  The entry point
+    itself runs in the tp and tp4 phases (``ulysses_run``)."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    q, k, v, do = _ring_inputs(b, s, h, h, d, dtype, device=device)
+
+    def attn(qs, ks, vs, dos):
+        outs, grads = [], []
+        for qq, kk, vv, dd in zip(qs, ks, vs, dos):
+            xs = [t.clone().requires_grad_() for t in (qq, kk, vv)]
+            o = fa.flash_attention(*xs)
+            o.backward(dd)
+            outs.append(o.detach())
+            grads.append([t.grad for t in xs])
+        return outs, grads
+
+    hl = h // n
+    chunk = lambda t: [t[:, :, j * hl:(j + 1) * hl].contiguous()  # noqa
+                       for j in range(n)]
+    parts = [chunk(t) for t in (q, k, v, do)]
+    _sync(device)
+    _reset_train_counts()
+    outs, grads = attn(*parts)
+    _sync(device)
+    launches = dict(zip(TRAIN_COUNTS, _train_counts()))
+    ref_o, ref_g = attn([q], [k], [v], [do])
+    got = [torch.cat(outs, dim=2)] + [torch.cat([g[i] for g in grads], dim=2)
+                                      for i in range(3)]
+    want = [ref_o[0]] + ref_g[0]
+    tol = RING_TOL[str(dtype).split(".")[-1]]
+    errs = [float((a.float() - w.float()).abs().max()) for a, w in
+            zip(got, want)]
+    bits = [bool(torch.equal(a, w)) for a, w in zip(got, want)]
+    assert max(errs) <= tol, f"ulysses n={n}: {errs} > {tol}"
+    if device.type == "cuda":
+        assert launches["flash_fwd_sm90"] == n and \
+            launches["flash_bwd_dq_sm90"] == n and \
+            launches["flash_bwd_dkv_sm90"] == n, launches
+    rec = dict(n=n, shape=[b, s, h, d], errors=errs, bit_equal=bits,
+               launches=launches)
+    if device.type == "cuda":
+        rec["replay_ms"] = cuda_ms(lambda: attn(*parts), reps=3)
+        rec["single_ms"] = cuda_ms(lambda: attn([q], [k], [v], [do]),
+                                   reps=3)
+    return rec
+
+
+def moe_run(device, ep_set=None, b=TRAIN_B, s=TRAIN_S, d=768, dff=3072,
+            experts=MOE_EXPERTS, x_seed=SEED):
+    """``ExpertParallelMoe`` at gpt_small's width (``experts`` experts,
+    ``ep_set``'s ranks sharing them), this rank's B x S tokens, forward
+    and backward of mean(out²) + 0.01·aux: the output against a dense
+    reference (every token through its expert's MLP, gated), the
+    gradients finite, the time of a forward and backward."""
+    import torch
+
+    from horovod_tpu_torch.parallel import ExpertParallelMoe
+    from horovod_tpu_torch.parallel.tensor_parallel import gelu
+
+    cpu = device.type == "cpu"
+    dtype = torch.float32 if cpu else torch.bfloat16
+    ep = 1 if ep_set is None else ep_set.size()
+    me = 0 if ep_set is None else ep_set.rank_in_set(_world_rank())
+    full = ExpertParallelMoe(experts, d, dff, dtype=dtype, device=device)
+    full.reset_parameters(torch.Generator(device.type).manual_seed(SEED))
+    mod = ExpertParallelMoe(experts, d, dff, process_set=ep_set,
+                            dtype=dtype, device=device)
+    le = experts // ep
+    with torch.no_grad():
+        mod.gate.copy_(full.gate)
+        mod.wi.copy_(full.wi[me * le:(me + 1) * le])
+        mod.wo.copy_(full.wo[me * le:(me + 1) * le])
+    g = torch.Generator(device.type).manual_seed(x_seed)
+    x = torch.randn((b, s, d), generator=g, device=device).to(dtype)
+
+    def fwd_bwd():
+        mod.zero_grad(set_to_none=True)
+        out, aux = mod(x)
+        (out.float().pow(2).mean() + 0.01 * aux).backward()
+        return out, aux
+
+    out, aux = fwd_bwd()
+    with torch.no_grad():
+        tokens = x.reshape(-1, d)
+        probs = torch.softmax(tokens.float() @ full.gate, dim=-1)
+        gate, idx = probs.max(dim=-1)
+        cap = max(1, int(mod.capacity_factor * tokens.shape[0] / experts))
+        pos = (torch.cumsum(torch.nn.functional.one_hot(idx, experts), 0)
+               - 1).gather(1, idx[:, None])[:, 0]
+        keep = pos < cap
+        ref = torch.zeros_like(tokens)
+        for e in range(experts):
+            sel = (idx == e) & keep
+            h = gelu(tokens[sel] @ full.wi[e].to(dtype))
+            ref[sel] = (h @ full.wo[e].to(dtype)) * gate[sel, None].to(dtype)
+    err = float((out.detach().reshape(-1, d).float()
+                 - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = 1e-4 if cpu else 2e-2
+    assert err <= tol * scale, f"moe ep={ep}: {err} > {tol} x {scale}"
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in mod.parameters())
+    aux = float(aux.detach())
+    assert finite and math.isfinite(aux) and aux > 0
+    rec = dict(ep=ep, tokens=b * s, experts=experts, capacity=cap,
+               dropped=int((~keep).sum()), aux=aux,
+               max_abs_err=err, ref_scale=scale)
+    if not cpu:
+        rec["fwd_bwd_ms"] = cuda_ms(fwd_bwd, reps=3)
+    return rec
+
+
+def pipeline_run(device, pp_set=None, preset="gpt_small", m=PIPE_M,
+                 s=TRAIN_S):
+    """``pipeline_apply`` over ``pp_set``'s ranks (None: pp = 1):
+    ``preset``'s decoder blocks (flash attention, bf16 over fp32 masters
+    from SEED) cut into one stage a rank, M microbatches of 1 x S
+    activations: the outputs on every rank against the blocks run one
+    microbatch at a time on this rank (the same shapes through the same
+    kernels), every stage gradient finite, the training kernels'
+    launches (M a block of this stage), the forward and backward's
+    time."""
+    import torch
+    from torch.func import functional_call
+
+    from horovod_tpu_torch.models import Transformer, init_params
+    from horovod_tpu_torch.models import transformer as tm
+    from horovod_tpu_torch.parallel.pipeline import pipeline_apply
+
+    cpu = device.type == "cpu"
+    cfg = getattr(tm, preset)(attention_impl="flash",
+                              dtype=torch.float32 if cpu else torch.bfloat16)
+    model = Transformer(cfg, params=init_params(
+        cfg, torch.Generator(device.type).manual_seed(SEED), device=device,
+        param_dtype=torch.float32))
+    blocks = [getattr(model, f"layer_{i}") for i in range(cfg.num_layers)]
+    pos = torch.arange(s, device=device)[None]
+
+    class Stage(torch.nn.Module):
+        def __init__(self, mods):
+            super().__init__()
+            self.mods = torch.nn.ModuleList(mods)
+
+        def forward(self, h):
+            for blk in self.mods:
+                h = blk(h, pos.expand(h.shape[:2]))
+            return h
+
+    pp = 1 if pp_set is None else pp_set.size()
+    me = 0 if pp_set is None else pp_set.rank_in_set(_world_rank())
+    per = cfg.num_layers // pp
+    stage = Stage(blocks[me * per:(me + 1) * per])
+    params = dict(stage.named_parameters())
+    g = torch.Generator(device.type).manual_seed(SEED)
+    x = torch.randn((m, 1, s, cfg.d_model), generator=g,
+                    device=device).to(cfg.dtype)
+    _sync(device)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    y = pipeline_apply(lambda p, h: functional_call(stage, p, (h,)),
+                       params, x, m, process_set=pp_set)
+    y.float().pow(2).mean().backward()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(zip(TRAIN_COUNTS, _train_counts()))
+    whole = Stage(blocks)
+    with torch.no_grad():
+        ref = torch.stack([whole(x[i]) for i in range(m)])
+    same = bool(torch.equal(y.detach(), ref))
+    err = float((y.detach().float() - ref.float()).abs().max())
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+    assert finite, "a stage gradient is not finite"
+    assert err <= (1e-4 if cpu else 2e-2) * float(ref.float().abs().max()), \
+        f"pipeline pp={pp}: {err}"
+    if not cpu:
+        assert launches["flash_fwd_sm90"] == m * per and \
+            launches["flash_bwd_dq_sm90"] == m * per and \
+            launches["flash_bwd_dkv_sm90"] == m * per, launches
+    del model, stage, y
+    return dict(pp=pp, microbatches=m, blocks_per_stage=per,
+                bit_equal=same, max_abs_err=err, launches=launches,
+                fwd_bwd_s=wall)
+
+
+def phase_parallel(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S,
+                   steps=TRAIN_STEPS, s_ulysses=ULYSSES_S):
+    """The rest of ``parallel/`` on one card (module docstring, phase
+    parallel), through ``init()`` at world 1."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu" if device == "cpu" else None)
+    dev = hvd.device()
+    rec = {"train": multi_axis_run((1, 1, 1), "ring_flash", dev, preset,
+                                   b, s, steps)}
+    if dev.type == "cuda":
+        n = 12  # gpt_small's layers
+        want = [n, n, n, n, 0, n, 0, n, 0]
+        assert all(c == want for c in rec["train"]["per_step"]), (
+            rec["train"]["per_step"][0], want)
+        torch.cuda.empty_cache()
+    # a side check of the local attention, no main path: the entry
+    # point runs in the tp and tp4 phases
+    rec["ulysses_replay"] = [ulysses_replay(n, dev, b=b, s=s_ulysses)
+                             for n in ULYSSES_N]
+    rec["moe"] = moe_run(dev, None, b=b, s=s)
+    rec["pipeline"] = pipeline_run(dev, None, preset, s=s)
+    hvd.shutdown()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log("  parallel: " + json.dumps(rec))
+    return rec
+
+
+TP4_WORKER = r"""
+import json, sys
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import llama3_8b
+from horovod_tpu_torch.parallel import tensor_shard_mesh
+import chip_smoke as cs
+
+rank, world, store, out, device, preset, b, s = sys.argv[1:9]
+rank, world, b, s = int(rank), int(world), int(b), int(s)
+cpu = device == "cpu"
+if cpu:
+    torch.set_num_threads(1)
+hvd.init(device="cpu" if cpu else None, rank=rank, size=world,
+         init_method="file://" + store)
+dev = hvd.device()
+cfg = cs.tiny_serving_cfg() if cpu else llama3_8b(dtype=torch.bfloat16)
+res = {"serve": [], "train": []}
+want = None
+for shards in (1, 2, 4):
+    mesh = tensor_shard_mesh("tp", shards) if shards > 1 else None
+    # the timed runs: the ranks' streams are compared after the run
+    rec, streams = cs.serve_sharded(cfg, shards, mesh, dev, want=want,
+                                    check=False)
+    want = want or streams
+    rec["streams"] = streams
+    if mesh is not None:  # the step's all-reduces alone, at batch 8
+        rec["allreduce_burst"] = cs.allreduce_burst(mesh, dev, cfg)
+    res["serve"].append(rec)
+    if not cpu:
+        torch.cuda.empty_cache()
+for impl in ("ulysses", "ring_flash"):
+    res["train"].append(cs.multi_axis_run((1, 2, 2), impl, dev, preset,
+                                          b=b, s=s))
+    if not cpu:
+        torch.cuda.empty_cache()
+# Ulysses through its entry point over NCCL at n = 4
+res["ulysses"] = cs.ulysses_run(
+    hvd.global_process_set, dev,
+    **(dict(cs.ULYSSES_CPU, b=b) if cpu else dict(b=b)))
+res["moe"] = cs.moe_run(dev, hvd.global_process_set, b=b, s=s,
+                        x_seed=cs.SEED + rank)
+res["pipeline"] = cs.pipeline_run(dev, hvd.global_process_set, preset, s=s)
+with open(out, "w") as f:
+    json.dump(res, f)
+hvd.shutdown()
+"""
+
+
+def phase_tp4(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S,
+              timeout=1500):
+    """Four cards over NCCL (TP4_WORKER; not in the default run):
+    llama3_8b served at shards 1, 2 (two engines, ranks {0, 1} and
+    {2, 3}) and 4, each run's decode tokens/s, TTFT p50 and per-rank
+    peak memory, every rank's streams equal to shards = 1's (tie-aware)
+    and across the ranks; the dp x sp x tp trainer at (1, 2, 2) with
+    ``ulysses`` and ``ring_flash`` at ``preset``'s widths (step time,
+    tokens/s, losses equal on every rank, finite and falling); MoE at
+    ep = 4 (each rank its own tokens); the pipeline at pp = 4
+    (``preset``'s blocks as four stages, M = 8)."""
+    world = 4
+    if device == "cuda":
+        import torch
+
+        assert torch.cuda.device_count() >= world, (
+            f"tp4 needs {world} cards, found {torch.cuda.device_count()}")
+        from horovod_tpu_torch.ops import _build
+
+        _build.build_all()
+    recs = _spawn(TP4_WORKER, world, [device, preset, b, s], timeout, "tp4")
+    for i in range(3):
+        runs = [r["serve"][i] for r in recs]
+        assert all(r["streams"] == runs[0]["streams"] for r in runs), (
+            f"shards={runs[0]['shards']}: ranks' streams differ")
+    for i in range(2):
+        losses = recs[0]["train"][i]["losses"]
+        assert all(r["train"][i]["losses"] == losses for r in recs), \
+            "ranks disagree on the trainer's losses"
+    rec = dict(
+        serve=[{k: v for k, v in r.items() if k != "streams"}
+               | {"rank_peak_mem_gb": [x["serve"][i]["peak_mem_gb"]
+                                       for x in recs]}
+               for i, r in enumerate(recs[0]["serve"])],
+        train=[{k: v for k, v in t.items() if k not in ("step_s",
+                                                        "per_step")}
+               | {"slowest_rank_ms_mean": max(
+                   x["train"][i]["step_ms_mean"] for x in recs)}
+               for i, t in enumerate(recs[0]["train"])],
+        moe=[r["moe"] for r in recs], pipeline=[r["pipeline"] for r in recs],
+        ulysses=[r["ulysses"] for r in recs])
+    # every rank's launches: the serving kernels over the three serving
+    # runs, the training kernels over the trainers and the pipeline
+    rec["serve_launches"] = {k: sum(s["launches"][k] for r in recs
+                                    for s in r["serve"])
+                             for k in recs[0]["serve"][0]["launches"]}
+    rec["train_launches"] = {k: sum(t["launches"][k] for r in recs
+                                    for t in r["train"] + [r["pipeline"],
+                                                           r["ulysses"]])
+                             for k in TRAIN_COUNTS}
+    log("  tp4: " + json.dumps(rec))
+    return rec
+
+
+PHASES = ("kernels", "serving", "tp", "oracle", "spec", "disagg",
+          "training", "overlap", "zero", "training_oracle", "remat",
+          "resnet", "resnet_oracle", "pipeline", "ring", "parallel",
+          "guard", "elastic", "observe")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -4941,6 +5900,11 @@ def kernel_entries(kern, train_kern, serving, train, train_oracle, oracle,
     return entries
 
 
+def _tp4_launches(tp4):
+    """The serving kernels' launches over tp4's sharded serving runs."""
+    return {"launches": tp4["serve_launches"]} if tp4 else None
+
+
 OFFSET_ENTRIES = (
     ("flash_fwd_sm90_kv_offset", "fwd", "sm90", "flash_fwd_sm90.cu", 104),
     ("flash_fwd_simt_kv_offset", "fwd", "simt", "flash_fwd.cu", 104),
@@ -4985,6 +5949,14 @@ def offset_entries(b9, ring, ring4):
     return entries
 
 
+_T0 = time.perf_counter()
+
+
+def _phase(name):
+    """Log a phase's start with the seconds since the script began."""
+    log(f"phase {name}: (at {time.perf_counter() - _T0:.0f} s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5025,78 +5997,97 @@ def main(argv=None) -> int:
     kern = train_kern = bn_kern = serving = train = resnet = None
     train_oracle = remat = pipeline = b9 = ring = ring4 = None
     if "kernels" in phases:
-        log("phase kernels:")
+        _phase("kernels")
         kern = phase_kernels()
         train_kern = phase_train_kernels()
         b9 = phase_b9_kernels()
         bn_kern = phase_bn_kernels()
-    if "serving" in phases:
-        log("phase serving:")
+    tp = parallel = tp4 = None
+    if {"serving", "tp"} & set(phases):
+        # the tp phase holds its streams against the serving phase's
+        _phase("serving")
         serving = phase_serving()
+    if "tp" in phases:
+        _phase("tp")
+        tp = phase_tp(serving)
     oracle = spec = disagg = None
     if "oracle" in phases:
-        log("phase oracle:")
+        _phase("oracle")
         oracle = phase_oracle()
     if "spec" in phases:
-        log("phase spec:")
+        _phase("spec")
         spec = phase_spec()
     if "disagg" in phases:
-        log("phase disagg:")
+        _phase("disagg")
         disagg = phase_disagg()
     overlap = zero = None
     if {"training", "overlap", "zero"} & set(phases):
         # the overlap and zero phases are held against its losses
-        log("phase training:")
+        _phase("training")
         train = phase_training()
     if "overlap" in phases:
-        log("phase overlap:")
+        _phase("overlap")
         overlap = phase_overlap(train)
     if "zero" in phases:
-        log("phase zero:")
+        _phase("zero")
         zero = phase_zero(train)
     if "training_oracle" in phases:
-        log("phase training_oracle:")
+        _phase("training_oracle")
         train_oracle = phase_training_oracle()
     if "remat" in phases:
-        log("phase remat:")
+        _phase("remat")
         remat = phase_remat()
     if "resnet" in phases:
-        log("phase resnet:")
+        _phase("resnet")
         resnet = phase_resnet()
     if "resnet_oracle" in phases:
-        log("phase resnet_oracle:")
+        _phase("resnet_oracle")
         phase_resnet_oracle()
     if "pipeline" in phases:
-        log("phase pipeline:")
+        _phase("pipeline")
         pipeline = phase_pipeline(resnet)
     if "ring" in phases:
-        log("phase ring:")
+        _phase("ring")
         ring = phase_ring()
+    if "parallel" in phases:
+        _phase("parallel")
+        parallel = phase_parallel()
     guard = elastic = None
     if "guard" in phases:
-        log("phase guard:")
+        _phase("guard")
         guard = phase_guard()
     if "elastic" in phases:
-        log("phase elastic:")
+        _phase("elastic")
         elastic = phase_elastic()
     observe = None
     if "observe" in phases:
-        log("phase observe:")
+        _phase("observe")
         observe = phase_observe(serving)
     if "dp4" in phases:
-        log("phase dp4:")
+        _phase("dp4")
         phase_dp4(args.roots.split(","))
     if "ring4" in phases:
-        log("phase ring4:")
+        _phase("ring4")
         ring4 = phase_ring4()
+    if "tp4" in phases:
+        _phase("tp4")
+        tp4 = phase_tp4()
     runs = [r for r in (train, overlap, zero, remat, guard, elastic) if r]
+    if parallel:  # the trainer and the pipeline (the replays are checks)
+        runs += [parallel["train"], parallel["pipeline"]]
+    if tp:  # ulysses_attention on both ranks
+        runs.append({"launches": tp["ulysses_launches"]})
+    if tp4:  # every rank's trainers, pipeline and ulysses_attention
+        runs.append({"launches": tp4["train_launches"]})
     if runs:  # the training kernels ran on up to six main paths
         train = dict(train or {}, launches={k: sum(
             r["launches"][k] for r in runs) for k in TRAIN_COUNTS})
     entries = (kernel_entries(kern, train_kern, serving, train,
-                              train_oracle, oracle, (spec, disagg))
+                              train_oracle, oracle,
+                              (spec, disagg, tp, _tp4_launches(tp4)))
                + offset_entries(b9, ring, ring4)
                + bn_entries(bn_kern, (resnet, pipeline, observe)))
+    log(f"done: {time.perf_counter() - _T0:.0f} s")
     log(card)
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

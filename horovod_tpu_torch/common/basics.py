@@ -89,7 +89,8 @@ def _env(name: str, fallback: Optional[str] = None) -> Optional[int]:
 
 def init(device: Optional[Union[str, torch.device]] = None, *,
          rank: Optional[int] = None, size: Optional[int] = None,
-         init_method: Optional[str] = None) -> None:
+         init_method: Optional[str] = None,
+         backend: Optional[str] = None) -> None:
     """Join the job (idempotent).
 
     ``device=None`` runs on the card ``local_rank`` over NCCL and raises
@@ -99,8 +100,12 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
     ``init_method`` is any ``torch.distributed`` URL (default:
     ``env://`` under torchrun, ``tcp://<HVD_TPU_COORDINATOR>`` under
     this package's launcher, a temporary file store for a lone
-    process).  Under the elastic driver the first call rendezvouses for
-    the epoch's assignment (``elastic.worker.ensure_assignment``)."""
+    process).  ``backend`` defaults to gloo on the CPU and NCCL on a
+    card; ``backend="gloo"`` with a card lets several ranks share one
+    card (NCCL refuses two ranks on one GPU), its collectives staged
+    through the host.  Under the elastic driver the first call
+    rendezvouses for the epoch's assignment
+    (``elastic.worker.ensure_assignment``)."""
     with _state.lock:
         if _state.initialized:
             return
@@ -131,7 +136,7 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
         if config.timeline_filename:  # opened first: a bad path joins nothing
             _open_timeline(config.timeline_filename,
                            config.timeline_mark_cycles, rank)
-        backend = "gloo" if dev.type == "cpu" else "nccl"
+        backend = backend or ("gloo" if dev.type == "cpu" else "nccl")
         timeout = datetime.timedelta(seconds=_TIMEOUT_S)
         try:
             if init_method is None and size == 1 and not launched:

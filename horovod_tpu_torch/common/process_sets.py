@@ -147,6 +147,17 @@ class ProcessSetRegistry:
             if group not in (None, dist.GroupMember.NON_GROUP_MEMBER):
                 dist.destroy_process_group(group)
 
+    def find_or_add(self, ranks: Sequence[int]) -> ProcessSet:
+        """The registered set over exactly ``ranks``, else a new one
+        (``add``: collective over the world, so every process calls it
+        with the same ranks in the same order)."""
+        want = sorted(ranks)
+        with self._lock:
+            for ps in self._table.values():
+                if ps.ranks == want:
+                    return ps
+        return self.add(ProcessSet(want))
+
     def ids(self) -> List[int]:
         with self._lock:
             return sorted(self._table)

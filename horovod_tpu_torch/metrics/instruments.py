@@ -9,8 +9,8 @@ the collectives (counts, bytes, latency), the overlap inventory and the
 process identity book, under the same names, label sets and buckets
 (the catalogue in docs/METRICS.md describes them).  The instruments
 whose producers are not ported yet (the native controller's, the
-two-level collectives' tier bytes, the sharded serving psum, the
-framework adapters' gradient norm and epoch metrics) are left out.
+two-level collectives' tier bytes, the framework adapters' gradient
+norm and epoch metrics) are left out.
 """
 
 from __future__ import annotations
@@ -158,7 +158,18 @@ SERVE_DEADLINE_EXCEEDED = counter(
     "Serving requests shed or cancelled past their deadline budget",
 )
 
-#: KV blocks resident on the (single) device's pool.
+#: Per-rank bytes the tensor-sharded serving step's row-parallel
+#: all-reduces stream (2 per decoder layer; modeled by
+#: ops.comm_model.modeled_serve_psum_bytes).  Stays 0 on an unsharded
+#: engine.
+SERVE_SHARD_PSUM_BYTES = counter(
+    "hvd_tpu_serve_shard_psum_bytes_total",
+    "Per-chip ICI bytes streamed by the sharded serving step's psums",
+)
+
+#: KV blocks resident per shard of the tensor-sharded pool: every rank
+#: holds ALL blocks (each at its num_kv_heads/shards head slice), so
+#: the gauge equals the pool size.
 SERVE_KV_BLOCKS_PER_SHARD = gauge(
     "hvd_tpu_serve_kv_blocks_per_shard",
     "KV blocks resident on each shard of the tensor-sharded pool",

@@ -12,7 +12,11 @@ torch.float32``: the training masters, as flax keeps them).
 beside the JAX ones.  :func:`resnet_params_from_flax` and
 :func:`resnet_params_to_flax` do the same for the ResNet (and the small
 models): the flax names, conv kernels HWIO <-> OIHW, ``batch_stats`` <->
-the norms' running buffers.  This module never imports JAX.
+the norms' running buffers.  :func:`shard_params` slices a full
+``Transformer`` tree for one rank of a tensor-sharded model, and
+:func:`multi_axis_params_from_flax` takes the JAX
+``MultiAxisTransformer``'s global tree to one rank's slices.  This
+module never imports JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..parallel.tensor_parallel import shard_slice, transformer_shard_specs
 from .transformer import TransformerConfig, param_shapes
 
 
@@ -61,6 +66,86 @@ def params_from_flax(np_tree: Mapping, cfg: TransformerConfig,
                              f"{shape}")
         t = torch.from_numpy(np.array(arr, dtype=np.float32))  # own copy
         out[key] = t.to(device=dev, dtype=dtype)
+    return out
+
+
+def shard_params(params: Mapping, cfg: TransformerConfig, rank: int,
+                 shards: int) -> dict:
+    """Rank ``rank``'s slices of a full ``Transformer`` tree — the
+    port's state dict or a flax-shaped nested tree of numpy arrays or
+    tensors — for ``shards``-way tensor sharding
+    (:func:`~horovod_tpu_torch.parallel.tensor_parallel.
+    transformer_shard_specs`: q/k/v and o on their head dim, gate/up
+    and down on F, each cut into ``shards`` contiguous slices as
+    ``shard_map`` cuts them); replicated leaves pass through.  Each cut
+    leaf is a copy that owns its memory, so the full tree can be freed.
+    Raises ``ValueError`` when ``shards`` does not divide the heads,
+    the kv heads and the MLP hidden, or when a leaf is not at its full
+    shape."""
+    hidden = cfg.d_model * cfg.mlp_ratio
+    if shards < 1 or cfg.num_heads % shards or cfg.kv_heads % shards \
+            or hidden % shards:
+        raise ValueError(
+            f"shards ({shards}) must divide num_heads ({cfg.num_heads}), "
+            f"num_kv_heads ({cfg.kv_heads}) and d_model*mlp_ratio "
+            f"({hidden})")
+    if not 0 <= rank < shards:
+        raise ValueError(f"rank {rank} outside {shards} shards")
+    full = {k: shape for k, (shape, _) in param_shapes(cfg).items()}
+
+    def walk(tree, specs, prefix):
+        out = {}
+        for key, val in tree.items():
+            name = f"{prefix}{key}"
+            if isinstance(val, Mapping):
+                out[key] = walk(val, specs[key], name + ".")
+                continue
+            if tuple(val.shape) != full.get(name, tuple(val.shape)):
+                raise ValueError(f"{name}: shape {tuple(val.shape)}, the "
+                                 f"full tree's is {full[name]}")
+            if specs[key] is None or shards == 1:
+                out[key] = val
+            else:
+                cut = shard_slice(val, specs[key], rank, shards)
+                out[key] = cut.clone(memory_format=torch.contiguous_format) \
+                    if isinstance(cut, torch.Tensor) else np.array(cut)
+        return out
+
+    return walk(params, transformer_shard_specs(params), "")
+
+
+def multi_axis_params_from_flax(np_tree: Mapping, model, mesh=None
+                                ) -> Dict[str, torch.Tensor]:
+    """This rank's state dict for ``model`` (a
+    :class:`~horovod_tpu_torch.parallel.sharded.MultiAxisTransformer`)
+    from the JAX ``MultiAxisTransformer``'s GLOBAL params tree (numpy
+    arrays, as ``init_sharded`` lays them out): every tp-sharded leaf
+    cut on its ``param_specs`` dimension into the tp ranks' contiguous
+    slices — the fused ``qkv`` kernel's slice is this rank's
+    ``(3, H/tp, d)`` columns, as ``shard_map`` hands them to each chip —
+    and the rest taken whole.  ``mesh`` defaults to the model's."""
+    from ..parallel.sharded import param_specs
+
+    mesh = mesh or model.mesh
+    flat = _flatten(np_tree)
+    want = model.state_dict()
+    extra = sorted(set(flat) - set(want))
+    missing = sorted(set(want) - set(flat))
+    if extra or missing:
+        raise ValueError(f"flax tree does not match the model: missing "
+                         f"{missing[:5]}, unexpected {extra[:5]}")
+    specs = param_specs(model)
+    out: Dict[str, torch.Tensor] = {}
+    for key, target in want.items():
+        dim = specs[key].index("tp") if "tp" in specs[key] else None
+        arr = shard_slice(np.asarray(flat[key], dtype=np.float32), dim,
+                          mesh.tp_idx, mesh.tp)
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: flax shape {flat[key].shape} gives "
+                             f"{arr.shape} at tp={mesh.tp}, the model "
+                             f"wants {tuple(target.shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=target.device, dtype=target.dtype)
     return out
 
 

@@ -17,6 +17,13 @@ flax model on the same weights.  Four attention paths:
   ring_attention` with the dense or the flash-kernel impl;
 * ``"dot"``: the plain dense :func:`causal_dot_attention` (the oracle).
 
+``TransformerConfig.shard_axis`` (a process set) slices the model
+Megatron-style over the set's ranks, as the JAX config's mesh axis
+does: each rank holds its query and kv heads and its slice of the MLP
+hidden, and the attention output and MLP down projections each end in
+one all-reduce (``parallel/tensor_parallel.py``'s ``f``/``g``); the
+tensor-sharded serving engine runs it.
+
 Weights keep the flax layout and names (``embed.embedding``,
 ``layer_{i}.attn.{q,k,v}.kernel`` (D, H, hd), ``attn.o.kernel``
 (H, hd, D), ``mlp.{gate,up,down}.kernel``, ``ln{1,2}.scale``,
@@ -54,6 +61,7 @@ from ..ops.flash_attention import (
     flash_attention, flash_chunk_attention, flash_decode_paged,
 )
 from ..parallel.ring_attention import ring_attention
+from ..parallel.tensor_parallel import copy_to_tp, reduce_from_tp
 from ._remat import remat_call
 
 _NORM_EPS = 1e-5
@@ -140,6 +148,15 @@ class TransformerConfig:
     #: block, or a tuple of num_layers names, one per block — e.g.
     #: ("none",)*6 + ("full",)*6 remats only the deep half
     remat_policy: Any = None
+    #: Megatron-style tensor sharding: the process set (the reference's
+    #: mesh axis) the model's weights are sliced over.  With a set of n
+    #: ranks each rank holds H/n query heads, H_kv/n kv heads (the
+    #: paged pool shards with them) and F/n of the MLP hidden, and the
+    #: two row-parallel projections (attention output, MLP down) end in
+    #: ONE all-reduce each: two a block.  None or a set of one is the
+    #: unsharded model.  num_heads, num_kv_heads and d_model*mlp_ratio
+    #: must divide by the set's size.
+    shard_axis: Any = None
 
     def __post_init__(self):
         kv = self.num_kv_heads
@@ -147,6 +164,14 @@ class TransformerConfig:
             raise ValueError(
                 f"num_heads ({self.num_heads}) must be a multiple of "
                 f"num_kv_heads ({kv})")
+        tp = self.shards
+        if tp > 1:
+            hidden = self.d_model * self.mlp_ratio
+            if self.num_heads % tp or self.kv_heads % tp or hidden % tp:
+                raise ValueError(
+                    f"shard_axis of size {tp} must divide num_heads "
+                    f"({self.num_heads}), num_kv_heads ({self.kv_heads}) "
+                    f"and d_model*mlp_ratio ({hidden})")
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window}")
         if self.remat_policy is not None:
@@ -172,6 +197,11 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def shards(self) -> int:
+        """Size of ``shard_axis`` (1 without one)."""
+        return 1 if self.shard_axis is None else self.shard_axis.size()
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -236,9 +266,12 @@ def param_shapes(cfg: TransformerConfig, param_dtype=None
     """``{state-dict key: (shape, dtype)}`` in creation order — the one
     definition :class:`Transformer`, :func:`init_params` and the flax
     bridge share.  Matrices are ``param_dtype`` (default ``cfg.dtype``,
-    the serving copy; fp32 for training masters), norm scales fp32."""
-    d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.kv_heads
-    f = d * cfg.mlp_ratio
+    the serving copy; fp32 for training masters), norm scales fp32.  Under
+    ``cfg.shard_axis`` the sliced leaves have this rank's shapes."""
+    tp = cfg.shards
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv = cfg.num_heads // tp, cfg.kv_heads // tp
+    f = d * cfg.mlp_ratio // tp
     w, n = param_dtype or cfg.dtype, torch.float32
     out = {"embed.embedding": ((cfg.vocab_size, d), w)}
     for i in range(cfg.num_layers):
@@ -289,12 +322,13 @@ class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         self.cfg = cfg
-        d, hd = cfg.d_model, cfg.head_dim
+        d, hd, tp = cfg.d_model, cfg.head_dim, cfg.shards
         for name, heads in (("q", cfg.num_heads), ("k", cfg.kv_heads),
                             ("v", cfg.kv_heads)):
-            self.add_module(name, _Weight("kernel", (d, heads, hd),
+            self.add_module(name, _Weight("kernel", (d, heads // tp, hd),
                                           cfg.dtype, device))
-        self.o = _Weight("kernel", (cfg.num_heads, hd, d), cfg.dtype, device)
+        self.o = _Weight("kernel", (cfg.num_heads // tp, hd, d), cfg.dtype,
+                         device)
 
     def _proj(self, x, w):
         d, heads, hd = w.shape
@@ -304,6 +338,9 @@ class Attention(nn.Module):
     def forward(self, x, positions, paged=None, layer: int = 0):
         cfg = self.cfg
         w = cfg.dtype  # flax casts each fp32 kernel before its product
+        # under shard_axis this rank projects its own heads (Megatron's
+        # f in front: the input's gradient sums over the set)
+        x = copy_to_tp(x, cfg.shard_axis)
         q = rope(self._proj(x, self.q.kernel.to(w)), positions)
         k = rope(self._proj(x, self.k.kernel.to(w)), positions)
         v = self._proj(x, self.v.kernel.to(w))
@@ -346,23 +383,28 @@ class Attention(nn.Module):
             out = causal_dot_attention(q, k, v, causal=cfg.causal,
                                        window=cfg.window)
         h, hd, d = self.o.kernel.shape
-        return out.reshape(*out.shape[:-2], h * hd) @ \
+        out = out.reshape(*out.shape[:-2], h * hd) @ \
             self.o.kernel.to(w).reshape(h * hd, d)
+        # row-parallel: the local heads' partial outputs, one all-reduce
+        return reduce_from_tp(out, cfg.shard_axis)
 
 
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_model * cfg.mlp_ratio
+        d, f = cfg.d_model, cfg.d_model * cfg.mlp_ratio // cfg.shards
         self.dtype = cfg.dtype
+        self.shard_axis = cfg.shard_axis
         self.gate = _Weight("kernel", (d, f), cfg.dtype, device)
         self.up = _Weight("kernel", (d, f), cfg.dtype, device)
         self.down = _Weight("kernel", (f, d), cfg.dtype, device)
 
     def forward(self, x):
         w = self.dtype
-        return (F.silu(x @ self.gate.kernel.to(w))
-                * (x @ self.up.kernel.to(w))) @ self.down.kernel.to(w)
+        x = copy_to_tp(x, self.shard_axis)
+        out = (F.silu(x @ self.gate.kernel.to(w))
+               * (x @ self.up.kernel.to(w))) @ self.down.kernel.to(w)
+        return reduce_from_tp(out, self.shard_axis)
 
 
 class Block(nn.Module):

@@ -1,6 +1,8 @@
 """Byte and timing models (a subset of the JAX package's).
 
-Copied from ``horovod_tpu/ops/comm_model.py``: :func:`modeled_kvsnap_bytes`
+Copied from ``horovod_tpu/ops/comm_model.py``:
+:func:`modeled_serve_psum_bytes` (the tensor-sharded serving step's
+all-reduce bytes), :func:`modeled_kvsnap_bytes`
 and its measured twin :func:`measured_kvsnap_bytes`, the pair the fleet
 router's warm handoffs and migrations are held to (modeled == measured,
 exactly), and :func:`modeled_overlap_exposed`, the timing model of the
@@ -19,7 +21,8 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 __all__ = ["measured_kvsnap_bytes", "modeled_kvsnap_bytes",
-           "modeled_overlap_exposed", "overlap_inventory"]
+           "modeled_overlap_exposed", "modeled_serve_psum_bytes",
+           "overlap_inventory"]
 
 #: ring-stream factor of an allreduce: reduce-scatter + allgather
 _ALL_REDUCE_FACTOR = 2.0
@@ -36,6 +39,36 @@ def _itemsize(dtype) -> int:
     if name in _ITEMSIZE:
         return _ITEMSIZE[name]
     return int(np.dtype(dtype).itemsize)
+
+
+def modeled_serve_psum_bytes(
+    batch: int,
+    q_len: int,
+    d_model: int,
+    num_layers: int,
+    shards: int,
+    dtype: str = "float32",
+) -> dict:
+    """Per-rank ring-stream bytes of ONE tensor-sharded serving step's
+    collectives (copied from the JAX package): the Megatron schedule
+    runs exactly TWO row-parallel all-reduces per decoder layer
+    (attention output projection, MLP down projection), each of that
+    sublayer's ``(batch, q_len, d_model)`` output in the activation
+    dtype; nothing else in the step communicates (the KV pool is
+    head-sharded in place, block tables replicate, the embedding head
+    is replicated).  The ring stream per rank is ``2*(shards-1)/shards
+    * payload`` per all-reduce."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    if shards == 1:
+        return {"psum_count": 0, "payload_bytes": 0, "stream_bytes": 0}
+    payload = int(batch) * int(q_len) * int(d_model) * _itemsize(dtype)
+    per = 2 * (shards - 1) * payload // shards
+    return {
+        "psum_count": 2 * num_layers,
+        "payload_bytes": payload,
+        "stream_bytes": 2 * num_layers * per,
+    }
 
 
 def modeled_kvsnap_bytes(

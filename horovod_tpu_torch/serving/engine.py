@@ -50,7 +50,26 @@ gathered.  The decode step reads the pools in place through the paged
 kernel, so it gathers nothing, where the JAX decode program gathers
 every page it reads.
 
-Not ported: tensor sharding (``shards > 1`` raises).
+Tensor sharding (``ServeConfig.shards`` > 1, or ``mesh=`` a process
+set): one engine per rank of the set, each over its slice of the
+weights (Megatron: heads and the MLP hidden, two all-reduces a layer)
+and of the pool (the kv-head dimension), where the JAX engine runs one
+``shard_map`` program over the chips.  Every rank runs this host loop,
+and must take the same decisions, or the all-reduces deadlock:
+requests enter on the set's first rank (what the others submit is
+replaced by its broadcast, so call ``submit`` on every rank with the
+same arguments or on the first alone), and every step begins with one
+broadcast from it — the requests submitted or drained from staging
+since the last step, whether its source is done, and its clock for the
+deadline shed.  Tables, refcounts and evictions then replicate, greedy
+tokens come from identical logits after the all-reduces, and
+request-level instruments are booked on the first rank alone.
+``check_agreement`` (off; the tests turn it on) asserts each step that
+the ranks took the same tokens.  :meth:`ServingEngine.export_requests`
+gathers the kv-head slices into the record an unsharded engine writes,
+and :meth:`ServingEngine.import_kv` slices one, so snapshots move
+between sharded and unsharded engines both ways; both are collective
+over the set, as is every step.
 """
 
 from __future__ import annotations
@@ -64,12 +83,17 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import trace
+from ..common import basics
 from ..common.device import resolve_device
 from ..common.retry import env_float, env_int
 from ..metrics import instruments as _instr
+from ..models.convert import shard_params
 from ..models.transformer import Transformer, TransformerConfig
+from ..ops.comm_model import modeled_serve_psum_bytes
+from ..parallel._mesh_utils import tensor_shard_mesh
 from ..utils.logging import get_logger
 from ..utils.profiler import device_kernels
 from .kv_cache import (
@@ -93,6 +117,15 @@ _STEP_DECODE = _instr.SERVE_STEPS.labels("decode")
 _STEP_SPEC = _instr.SERVE_STEPS.labels("spec")
 _REQ_SUBMITTED = _instr.SERVE_REQUESTS.labels("submitted")
 _REQ_COMPLETED = _instr.SERVE_REQUESTS.labels("completed")
+_ALLREDUCES = _instr.COLLECTIVES.labels("allreduce", "eager")
+_ALLREDUCE_BYTES = _instr.COLLECTIVE_BYTES.labels("allreduce")
+
+
+def _allreduce_totals() -> Tuple[float, float]:
+    """(all-reduces, payload bytes) booked in this process so far: the
+    sharded steps' row-parallel sums book there."""
+    return _ALLREDUCES.get(), _ALLREDUCE_BYTES.get()
+
 
 _PREFILL_TIERS_ENV = "HVD_TPU_SERVE_PREFILL_TIERS"
 _DECODE_TIERS_ENV = "HVD_TPU_SERVE_DECODE_TIERS"
@@ -169,7 +202,10 @@ class ServeConfig:
     prefix_cache: bool = True
     #: default per-request latency budget in seconds (0 = none)
     deadline_s: float = 0.0
-    #: tensor sharding over several cards — not ported yet (> 1 raises)
+    #: tensor-shard the engine over this many ranks of one host (kv heads
+    #: and the paged pool head-sharded, Megatron MLP; must divide
+    #: num_kv_heads, num_heads and d_model*mlp_ratio); 1 = one card;
+    #: ignored when an explicit mesh is passed
     shards: int = 1
     spec: bool = False
     spec_k: int = 4
@@ -260,10 +296,18 @@ class ServingEngine:
     prefill tier: each request stops at the step its prompt completes
     and its first token emits, and parks an exported ``kvsnap/1`` record
     in :attr:`handoffs`; such an engine never runs a decode or verify
-    step."""
+    step.
+
+    ``mesh`` (a process set, as from
+    :func:`~horovod_tpu_torch.parallel.tensor_shard_mesh`) or
+    ``ServeConfig.shards`` > 1 tensor-shards the engine over the set's
+    ranks (the module docstring): ``params`` is the full tree, and each
+    rank keeps copies of its slices (``models.convert.shard_params``),
+    so the caller can free the tree."""
 
     def __init__(self, cfg: TransformerConfig, params, *,
                  serve: Optional[ServeConfig] = None, device=None,
+                 mesh=None,
                  drafter: Optional[Drafter] = None,
                  role: str = "both",
                  clock=time.perf_counter):
@@ -275,10 +319,34 @@ class ServingEngine:
             raise ValueError(
                 f"role must be 'both' or 'prefill', got {role!r}")
         self.serve_cfg = serve = serve or ServeConfig.from_env()
-        if serve.shards > 1:
-            raise NotImplementedError(
-                f"tensor-sharded serving (shards={serve.shards}) is not "
-                f"ported yet; use shards=1")
+        shards = mesh.size() if mesh is not None else serve.shards
+        if shards > 1:
+            hidden = cfg.d_model * cfg.mlp_ratio
+            if (cfg.num_heads % shards or cfg.kv_heads % shards
+                    or hidden % shards):
+                raise ValueError(
+                    f"shards ({shards}) must divide num_heads "
+                    f"({cfg.num_heads}), num_kv_heads ({cfg.kv_heads}) and "
+                    f"d_model*mlp_ratio ({hidden}) — kv heads are the "
+                    f"pool's shard seam")
+            if mesh is None:
+                mesh = tensor_shard_mesh("tp", shards)
+        #: the process set the engine is sharded over (None: one card)
+        self.mesh = mesh if shards > 1 else None
+        self.shards = shards
+        #: this rank's slice index in the set
+        self.shard_rank = 0
+        if self.mesh is not None:
+            self.shard_rank = self.mesh.rank_in_set(basics.rank())
+        #: the set's first rank: it takes requests in and books the
+        #: request-level instruments
+        self.lead = self.shard_rank == 0
+        #: assert every step that the ranks took the same tokens
+        self.check_agreement = False
+        #: per-rank bytes the sharded steps' all-reduces streamed so far
+        #: (modeled; 0 unsharded)
+        self.shard_psum_bytes = 0
+        self._inbox: List[Request] = []
         self.device = resolve_device(device)
         self.cfg = cfg
         self._clock = clock
@@ -288,8 +356,11 @@ class ServingEngine:
         self.handoffs: Dict[int, tuple] = {}
         #: replica name stamped into every export's ``source`` tag
         self.snap_source: Optional[str] = None
-        self.model = Transformer(cfg, params={
-            k: v.to(self.device) for k, v in params.items()})
+        if self.mesh is not None:
+            params = shard_params(params, cfg, self.shard_rank, shards)
+        self.model = Transformer(
+            dataclasses.replace(cfg, shard_axis=self.mesh), params={
+                k: v.to(self.device) for k, v in params.items()})
         bs = serve.block_size
         self.max_blocks_per_seq = blocks_for(cfg.max_seq_len, bs)
         max_batch = max(serve.decode_tiers)
@@ -342,12 +413,18 @@ class ServingEngine:
         self.spec_steps = 0
         self.spec_verified_rows = 0
         self.num_blocks = num_blocks
+        # each rank holds its kv heads' slice of EVERY block: tables,
+        # refcounts and evictions replicate
         self.k_pool, self.v_pool = make_pools(
-            cfg.num_layers, num_blocks, bs, cfg.kv_heads, cfg.head_dim,
-            cfg.dtype, device=self.device)
+            cfg.num_layers, num_blocks, bs, cfg.kv_heads // shards,
+            cfg.head_dim, cfg.dtype, device=self.device)
         self.pool_bytes = pool_bytes(
             cfg.num_layers, num_blocks, bs, cfg.kv_heads, cfg.head_dim,
             cfg.dtype)
+        #: device memory one rank gives the K+V pools
+        self.pool_bytes_per_shard = pool_bytes(
+            cfg.num_layers, num_blocks, bs, cfg.kv_heads, cfg.head_dim,
+            cfg.dtype, shards=shards)
         _instr.SERVE_KV_BLOCKS_PER_SHARD.set(num_blocks)
         self.allocator = BlockAllocator(
             num_blocks, bs, prefix_cache=serve.prefix_cache)
@@ -421,6 +498,32 @@ class ServingEngine:
             _CACHE_MISS.inc()
             self._progs[key] = True
 
+    def _book_psum_bytes(self, batch_tier: int, q_len: int) -> None:
+        """Book one sharded step's modeled per-rank all-reduce stream
+        (:func:`~horovod_tpu_torch.ops.comm_model.
+        modeled_serve_psum_bytes`) into ``shard_psum_bytes`` and
+        ``SERVE_SHARD_PSUM_BYTES``."""
+        if self.shards <= 1:
+            return
+        m = modeled_serve_psum_bytes(
+            batch_tier, q_len, self.cfg.d_model, self.cfg.num_layers,
+            self.shards, dtype=self.cfg.dtype)
+        self.shard_psum_bytes += m["stream_bytes"]
+        _instr.SERVE_SHARD_PSUM_BYTES.inc(m["stream_bytes"])
+
+    def _agree(self, out: np.ndarray) -> None:
+        """With ``check_agreement`` on a sharded engine: raise unless
+        every rank of the set took the first rank's tokens this step."""
+        if self.mesh is None or not self.check_agreement:
+            return
+        mine = torch.from_numpy(np.ascontiguousarray(out).astype(np.int64))
+        first = mine.to(self.device)
+        dist.broadcast(first, self.mesh.ranks[0], group=self.mesh.group)
+        if not torch.equal(first.cpu(), mine):
+            raise RuntimeError(
+                f"shard rank {self.shard_rank} took other tokens than the "
+                f"set's first rank this step")
+
     @property
     def program_count(self) -> int:
         """Distinct (kind, tier...) step keys booked so far."""
@@ -437,8 +540,11 @@ class ServingEngine:
         profiler's CPU events stand in for them), and the K/V bytes
         :meth:`PagedKVState.gather` copied — 0 here, since the decode
         kernel reads the pools in place (on the CPU its plain version
-        gathers inside the kernel's stand-in, which is not counted).
-        Serving on one device runs no collective."""
+        gathers inside the kernel's stand-in, which is not counted); and
+        ``collectives``, one ``{"op": "all_reduce", "payload_bytes"}``
+        per all-reduce the step ran — none on one card, two a layer on
+        a sharded engine, whose every rank must run the inventory
+        together."""
         bt = batch_tier or self.decode_tiers[0]
         pt = pages or self.page_tiers[0]
         dev = self.device
@@ -481,11 +587,15 @@ class ServingEngine:
         if cuda:
             torch.cuda.synchronize(self.device)
         before = PagedKVState.gather_bytes
+        red = _allreduce_totals()
         with torch.inference_mode(), profile(activities=acts) as prof:
             run()
             if cuda:
                 torch.cuda.synchronize(self.device)
         gathered = PagedKVState.gather_bytes - before
+        calls, nbytes = (a - b for a, b in zip(_allreduce_totals(), red))
+        calls = int(calls)
+        payload = int(nbytes) // max(calls, 1)
         self._last_logits = last_logits
         events = (device_kernels(prof) if cuda else
                   [e for e in prof.events() if e.device_type == DeviceType.CPU])
@@ -495,7 +605,8 @@ class ServingEngine:
             k["launches"] += 1
             k["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
         return {"kernels": kernels, "gather_bytes": gathered,
-                "collectives": []}
+                "collectives": [{"op": "all_reduce",
+                                 "payload_bytes": payload}] * calls}
 
     def warmup(self) -> int:
         """Build the kernel library (on a card), book the WHOLE tier menu
@@ -585,6 +696,12 @@ class ServingEngine:
             deadline_s=deadline_s if deadline_s and deadline_s > 0
             else None, trace_id=trace_id, spec_k=spec_k)
         self._next_id += 1
+        if self.mesh is not None:
+            # enters at the next step, from the set's first rank
+            self._inbox.append(req)
+            if self.lead:
+                _REQ_SUBMITTED.inc()
+            return req.id
         self._ids_seen.add(req.id)
         if req.deadline_s:
             self._any_deadline = True
@@ -611,7 +728,9 @@ class ServingEngine:
         """Open-loop intake: stage ``requests`` (an iterator that may
         block until each request's arrival) onto the engine's device
         through the data pipeline's ``DevicePrefetcher`` while steps
-        compute."""
+        compute.  On a sharded engine only the set's first rank stages
+        (its steps broadcast what it drains); the other ranks' call just
+        marks a source attached, and their ``requests`` go unread."""
         from ..data.prefetch import DevicePrefetcher
 
         if not self.accepting:
@@ -619,6 +738,9 @@ class ServingEngine:
                 "engine is draining (accepting=False); source rejected")
         if self._staging is not None and not self._source_done:
             raise RuntimeError("a request source is already attached")
+        if not self.lead:
+            self._source_done = False
+            return
         gen = self._stage_rows(requests)
         if self._staging is None:
             self._staging = DevicePrefetcher(gen, depth=depth,
@@ -656,10 +778,15 @@ class ServingEngine:
                     f"sourced request id {req.id} already in use")
             self._ids_seen.add(req.id)
             self._next_id = max(self._next_id, req.id + 1)
+            _REQ_SUBMITTED.inc()
+            if self.mesh is not None:
+                # the row stays staged on this rank; every rank
+                # assembles chunks of it on the host
+                self._inbox.append(req)
+                continue
             seq = Sequence(req=req, context=req.prompt)
             seq.staged = item[0]
             self.scheduler.submit(seq)
-            _REQ_SUBMITTED.inc()
 
     # -- batch assembly ------------------------------------------------------
 
@@ -742,6 +869,7 @@ class ServingEngine:
         tables, lens = self._tables_lens(
             decode_rows + [s for s, _ in chunk_sel], bt, lens_list)
         self._book_program("mixed", bt, width, None)
+        self._book_psum_bytes(bt, width)
         tracing = trace.enabled()
         t0 = trace.now() if tracing else 0.0
         with torch.inference_mode():
@@ -749,6 +877,7 @@ class ServingEngine:
                 tables, lens, torch.from_numpy(chunk_lens).to(self.device),
                 tokens)
         out = next_tok.cpu().numpy()  # device sync: the step's true extent
+        self._agree(out)
         if tracing:
             t1 = trace.now()
             self._last_step = ("mixed", t0, t1)
@@ -785,12 +914,14 @@ class ServingEngine:
         last = np.zeros((bt,), np.int64)
         last[:len(seqs)] = [s.generated[-1] for s in seqs]
         self._book_program("decode", bt, pages)
+        self._book_psum_bytes(bt, 1)
         tracing = trace.enabled()
         t0 = trace.now() if tracing else 0.0
         with torch.inference_mode():
             next_tok = self._decode_step(
                 tables, lens, torch.from_numpy(last).to(self.device), pages)
         out = next_tok.cpu().numpy()  # device sync: the step's true extent
+        self._agree(out)
         if tracing:
             t1 = trace.now()
             self._last_step = ("decode", t0, t1)
@@ -841,6 +972,7 @@ class ServingEngine:
         pages = self._page_tier(rows, extra=lambda s: len(s.draft))
         tables, lens = self._tables_lens(rows, bt, lens_list)
         self._book_program("mixed", bt, width, pages)
+        self._book_psum_bytes(bt, width)
         tracing = trace.enabled()
         t0 = trace.now() if tracing else 0.0
         with torch.inference_mode():
@@ -848,6 +980,7 @@ class ServingEngine:
                 tables, lens, torch.from_numpy(chunk_lens).to(self.device),
                 torch.from_numpy(tokens_host).to(self.device), pages)
         out = next_tok.cpu().numpy()  # device sync: the step's true extent
+        self._agree(out)
         if tracing:
             t1 = trace.now()
             self._last_step = ("spec", t0, t1)
@@ -900,7 +1033,8 @@ class ServingEngine:
             self.token_log.append((seq.req.id, now, seq.req.arrival))
         if seq.first_token_at is None:
             seq.first_token_at = now
-            _LAT_FIRST.observe(now - seq.req.arrival)
+            if self.lead:
+                _LAT_FIRST.observe(now - seq.req.arrival)
             trace.event("serve.first_token", rid=seq.req.id,
                         ttft=now - seq.req.arrival, trace=seq.req.trace_id)
             if self._last_step is not None and \
@@ -911,7 +1045,8 @@ class ServingEngine:
         elif seq.last_token_at is not None:
             # after an eviction the gap includes the requeue wait and
             # the re-prefill — the stall the user sees
-            _LAT_INTER.observe(now - seq.last_token_at)
+            if self.lead:
+                _LAT_INTER.observe(now - seq.last_token_at)
         seq.last_token_at = now
 
     def _emit(self, seq: Sequence, token: int, now: float) -> None:
@@ -919,12 +1054,13 @@ class ServingEngine:
         if seq.done:
             trace.event("serve.finish", rid=seq.req.id,
                         tokens=len(seq.generated), trace=seq.req.trace_id)
-            if seq.spec_drafted:
+            if seq.spec_drafted and self.lead:
                 _instr.SERVE_SPEC_ACCEPT_RATE.observe(
                     seq.spec_accepted / seq.spec_drafted)
             self.scheduler.finish(seq)
             self.results[seq.req.id] = self._partial_result(seq)
-            _REQ_COMPLETED.inc()
+            if self.lead:
+                _REQ_COMPLETED.inc()
 
     def _partial_result(self, seq: Sequence) -> np.ndarray:
         """Tokens folded into the context by evictions plus those
@@ -936,7 +1072,8 @@ class ServingEngine:
     def _finalize_shed(self) -> None:
         for seq in self.scheduler.shed:
             self.results[seq.req.id] = self._partial_result(seq)
-            _instr.SERVE_REQUESTS.labels("expired").inc()
+            if self.lead:
+                _instr.SERVE_REQUESTS.labels("expired").inc()
         self.scheduler.shed.clear()
 
     def cancel_all(self) -> None:
@@ -954,9 +1091,10 @@ class ServingEngine:
         sched.pending.clear()
         if self._staging is not None:
             self._staging.close()
-        for req in list(self._staging_meta):
+        for req in list(self._staging_meta) + self._inbox:
             self.results.setdefault(req.id, np.zeros((0,), np.int32))
         self._staging_meta.clear()
+        self._inbox = []
         self._source_done = True
         sched._book()
 
@@ -975,6 +1113,13 @@ class ServingEngine:
         with torch.inference_mode():
             sel = torch.stack([self.k_pool.index_select(1, idx),
                                self.v_pool.index_select(1, idx)])
+            if self.mesh is not None:
+                # the set's kv-head slices, in rank order: the record
+                # an unsharded engine writes
+                sel = sel.contiguous()
+                parts = [torch.empty_like(sel) for _ in range(self.shards)]
+                dist.all_gather(parts, sel, group=self.mesh.group)
+                sel = torch.cat(parts, dim=-2)
             # (2, n, L, bs, H, D); stack and index_select copied, so no
             # page aliases the pools
             host = sel.transpose(1, 2).contiguous()
@@ -1027,7 +1172,8 @@ class ServingEngine:
                     chains[rid], stream[:n_full * bs], pages[rid],
                     source=self.snap_source)
             out[rid] = (stream, snap, seq.req.arrival)
-        for req in list(self._staging_meta):  # staged: prompt-only (cold)
+        # staged or not yet entered: prompt-only (cold)
+        for req in list(self._staging_meta) + self._inbox:
             if want is None or req.id in want:
                 out[req.id] = (np.asarray(req.prompt, np.int32), None,
                                req.arrival)
@@ -1044,6 +1190,8 @@ class ServingEngine:
         matches it.  Returns the number of matchable blocks."""
         cfg, bs = self.cfg, self.serve_cfg.block_size
         shape = (cfg.num_layers, bs, cfg.kv_heads, cfg.head_dim)
+        h_local = cfg.kv_heads // self.shards
+        h0, h1 = self.shard_rank * h_local, (self.shard_rank + 1) * h_local
         pages = snap.get("pages") if isinstance(snap, dict) else None
         host = None
         if pages:
@@ -1070,11 +1218,13 @@ class ServingEngine:
                                    device=self.device)
                 cuda = self.device.type == "cuda"
                 for pool, j in ((self.k_pool, 0), (self.v_pool, 1)):
-                    pages_j = [host[i][j] for i, _b in fresh]
+                    # this rank's kv-head slice of each full page
+                    pages_j = [host[i][j][:, :, h0:h1] for i, _b in fresh]
                     # (L, n_fresh, bs, H, D), staged in page-locked memory
                     # on a card so the copy runs at the link's rate
                     src = torch.empty(
-                        (shape[0], len(fresh)) + shape[1:], dtype=pool.dtype,
+                        (shape[0], len(fresh), bs, h1 - h0, shape[3]),
+                        dtype=pool.dtype,
                         pin_memory=cuda)
                     torch.stack(pages_j, dim=1, out=src)
                     pool.index_copy_(1, idx,
@@ -1125,9 +1275,13 @@ class ServingEngine:
         any draft is pending, a decode step otherwise.  Returns False
         when there is nothing left."""
         idle = not self.scheduler.running and not self.scheduler.pending
-        self._drain_staging(block=idle and not self._source_done)
+        now = None
+        if self.mesh is None:
+            self._drain_staging(block=idle and not self._source_done)
+        else:
+            now = self._sync_intake(idle)
         if self._any_deadline:
-            now = self._clock()
+            now = self._clock() if now is None else now
             self.scheduler.cancel_expired(now)
             self.scheduler.admit(now)
             self._finalize_shed()
@@ -1204,6 +1358,37 @@ class ServingEngine:
                 self._emit(s, toks[i], now)
             return True
         return not self._source_done or bool(self.scheduler.pending)
+
+    def _sync_intake(self, idle: bool) -> float:
+        """A sharded step's first act, on every rank of the set: the
+        first rank drains its staging and broadcasts one header — the
+        requests it took in since the last step, whether its source is
+        done, its next request id and its clock — and every rank then
+        submits those requests, in that order.  Returns the first
+        rank's clock (the step's deadline time)."""
+        group, src = self.mesh.group, self.mesh.ranks[0]
+        if self.lead:
+            self._drain_staging(block=idle and not self._source_done)
+            header = [float(len(self._inbox)), float(self._source_done),
+                      float(self._next_id), self._clock()]
+        else:
+            header = [0.0] * 4
+        head = torch.tensor(header, dtype=torch.float64, device=self.device)
+        dist.broadcast(head, src, group=group)
+        n, done, next_id, now = head.tolist()
+        reqs = [self._inbox] if self.lead else [None]
+        if n:
+            dist.broadcast_object_list(reqs, src, group=group,
+                                       device=self.device)
+        self._inbox = []
+        self._source_done = bool(done)
+        self._next_id = int(next_id)
+        for req in reqs[0] or ():  # ids checked where they entered
+            self._ids_seen.add(req.id)
+            if req.deadline_s:
+                self._any_deadline = True
+            self.scheduler.submit(Sequence(req=req, context=req.prompt))
+        return now
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drive :meth:`step` until every submitted/staged request has

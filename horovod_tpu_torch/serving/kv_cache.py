@@ -496,9 +496,16 @@ def make_pools(num_layers: int, num_blocks: int, block_size: int,
 
 
 def pool_bytes(num_layers: int, num_blocks: int, block_size: int,
-               num_kv_heads: int, head_dim: int, dtype) -> int:
-    """Bytes of one K+V pool pair."""
-    per = num_layers * num_blocks * block_size * num_kv_heads * head_dim
+               num_kv_heads: int, head_dim: int, dtype,
+               shards: int = 1) -> int:
+    """Bytes of one K+V pool pair; ``shards`` > 1 gives one rank's
+    slice under kv-head tensor sharding (each rank holds every block's
+    ``num_kv_heads/shards`` heads)."""
+    if shards < 1 or num_kv_heads % shards:
+        raise ValueError(
+            f"shards ({shards}) must divide num_kv_heads ({num_kv_heads})")
+    per = (num_layers * num_blocks * block_size
+           * (num_kv_heads // shards) * head_dim)
     return 2 * per * torch.empty((), dtype=dtype).element_size()
 
 
@@ -508,13 +515,22 @@ def modeled_decode_read_bytes(context_len: int, *, block_size: int,
                               window: Optional[int] = None,
                               dtype_bytes: int = 2,
                               max_seq_len: Optional[int] = None,
-                              gather_pages: Optional[int] = None) -> dict:
+                              gather_pages: Optional[int] = None,
+                              shards: int = 1) -> dict:
     """Modeled K/V bytes ONE sequence's decode step reads, paged vs the
     dense full-context baseline (pure block arithmetic, as in the JAX
     package): ``paged_bytes`` — the owned pages holding live positions,
     once per KV head (what the kernel reads); ``gathered_bytes`` — what
     :meth:`PagedKVState.gather` copies first; ``full_bytes`` — a
-    contiguous ``max_seq_len`` MHA buffer."""
+    contiguous ``max_seq_len`` MHA buffer.  ``shards`` > 1 models
+    kv-head tensor sharding: one rank's pool slice holds
+    ``num_kv_heads/shards`` heads of every block, so its ``paged_bytes``
+    and ``gathered_bytes`` drop by exactly the shard factor (the pages
+    and their geometry replicate); ``full_bytes`` stays the single-card
+    baseline."""
+    if shards < 1 or num_kv_heads % shards:
+        raise ValueError(
+            f"shards ({shards}) must divide num_kv_heads ({num_kv_heads})")
     max_pages = blocks_for(max_seq_len or context_len, block_size)
     span = context_len if window is None else min(context_len, window + 1)
     pages = blocks_for(span, block_size) + (
@@ -526,7 +542,8 @@ def modeled_decode_read_bytes(context_len: int, *, block_size: int,
         gathered = min(max_pages, max(gather_pages, pages))
     else:
         gathered = max_pages
-    per_kv_page = 2 * block_size * num_kv_heads * head_dim
+    # K+V, one page, this rank's kv-head slice
+    per_kv_page = 2 * block_size * (num_kv_heads // shards) * head_dim
     full = max_seq_len if max_seq_len is not None else context_len
     per_layer_full = 2 * full * num_heads * head_dim
     return {

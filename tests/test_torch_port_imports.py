@@ -50,8 +50,10 @@ def test_port_imports_and_serves_with_jax_blocked():
     transformer's and the ResNet's), ring attention runs (world 1), the
     guard, elastic and runner modules import and one guarded step runs,
     and the bench, timeline, profiler bridge, cluster snapshot and step
-    inventories import and run, with jax, flax, optax and horovod_tpu
-    blocked outright."""
+    inventories import and run, and the rest of ``parallel/`` (the
+    Megatron layers, tensor-sharded serving's set, Ulysses, MoE, the
+    pipeline and the dp × sp × tp trainer) imports and runs at world 1,
+    with jax, flax, optax and horovod_tpu blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -165,6 +167,36 @@ def test_port_imports_and_serves_with_jax_blocked():
         "assert 'blocked' in open(tp).read()\n"
         "assert aggregate.cluster_snapshot()['ranks'] == 1\n"
         "hvd.shutdown()\n"
+        "from horovod_tpu_torch.parallel import (ColumnParallelDense,\n"
+        "    RowParallelDense, TensorParallelAttention, TensorParallelMlp,\n"
+        "    transformer_shard_specs, tensor_shard_mesh, ExpertParallelMoe,\n"
+        "    ulysses_attention, seq_to_heads, heads_to_seq)\n"
+        "from horovod_tpu_torch.parallel import sharded, pipeline, _mesh_utils\n"
+        "from horovod_tpu_torch.models.convert import shard_params\n"
+        "hvd.init(device='cpu')\n"
+        "one = tensor_shard_mesh('tp', 1)\n"
+        "assert ServingEngine(cfg, p, serve=ServeConfig(block_size=4,\n"
+        "    decode_tiers=(1, 2)), device='cpu', mesh=one).shards == 1\n"
+        "assert shard_params(p, cfg, 0, 1)['layer_0.attn.q.kernel'] is \\\n"
+        "    p['layer_0.attn.q.kernel']\n"
+        "assert torch.equal(ulysses_attention(rq, rq, rq, impl='flash'),\n"
+        "    flash_attention.flash_attention(rq, rq, rq))\n"
+        "mo = ExpertParallelMoe(4, 8, 16, device='cpu')\n"
+        "mo.reset_parameters(torch.Generator().manual_seed(0))\n"
+        "assert mo(torch.randn(1, 4, 8))[0].shape == (1, 4, 8)\n"
+        "assert pipeline.pipeline_apply(lambda w, h: h @ w, torch.eye(3),\n"
+        "    torch.ones(2, 1, 3), 2).shape == (2, 1, 3)\n"
+        "mesh = sharded.multi_axis_mesh(1, 1, 1)\n"
+        "mm = sharded.MultiAxisTransformer(16, 8, 2, 1, 8, mesh=mesh,\n"
+        "    attention_impl='ring_flash', device='cpu')\n"
+        "sharded.init_sharded(mm)\n"
+        "mopt, _ = sharded.init_opt_sharded(lambda ps: torch.optim.SGD(ps,\n"
+        "    lr=0.1), mm)\n"
+        "mstep = sharded.make_sharded_train_step(mm, mopt, mesh)\n"
+        "_, ml = mstep(training.create_train_state(mm, mopt),\n"
+        "    torch.randint(0, 16, (2, 8)), torch.randint(0, 16, (2, 8)))\n"
+        "assert bool(torch.isfinite(ml))\n"
+        "hvd.shutdown()\n"
         "assert eng.decode_step_inventory()['gather_bytes'] == 0\n"
         "assert eng.mixed_step_inventory()['gather_bytes'] > 0\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax') or\n"
@@ -228,6 +260,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--batch", "2"])
     assert not hvd.is_initialized()
+    from horovod_tpu_torch.parallel import (
+        ColumnParallelDense, ExpertParallelMoe, TensorParallelAttention)
+    from horovod_tpu_torch.parallel.sharded import MultiAxisTransformer
+
+    for make in (lambda: MultiAxisTransformer(16, 8, 2, 1, 8),
+                 lambda: ExpertParallelMoe(4, 8, 16),
+                 lambda: ColumnParallelDense(8, 8),
+                 lambda: TensorParallelAttention(2, 4, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert MultiAxisTransformer(16, 8, 2, 1, 8, device="cpu").embed \
+        .device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

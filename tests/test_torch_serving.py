@@ -187,8 +187,10 @@ def test_engine_validates_like_jax(models):
         eng.submit(np.ones((4,), np.int32), max_new_tokens=0)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(np.ones((60,), np.int32), max_new_tokens=10)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(tc, sd, serve=ServeConfig(shards=2), device="cpu")
+    # sharding is validated first, with the JAX engine's message
+    # (2 kv heads do not split 4 ways)
+    with pytest.raises(ValueError, match="must divide"):
+        ServingEngine(tc, sd, serve=ServeConfig(shards=4), device="cpu")
     jc, _, _, params, _ = models[None]
     je = JaxEngine(jc, params, serve=JaxServeConfig(block_size=8,
                                                     decode_tiers=(1, 2)))
