@@ -251,6 +251,15 @@ if any fails:
    NCCL at n = 4 as in the tp phase; MoE at ep = 4 (each rank its own
    tokens); the pipeline at pp = 4 (gpt_small's 12 blocks as 4 stages
    of 3, M = 8);
+15b. hier4 (four cards; not in the default run): the hier phase's runs
+   and checks over NCCL at B=8 x S=2048 a rank, 6 steps each (the
+   recorded calls' bytes equal to the model on both tiers), their step
+   times, and
+   the fp32 gradients' allreduce at gpt_small's parameter shapes timed
+   in turns: NCCL's own flat allreduce, the flat rank-ordered sum, the
+   two-level sum and the two-level sum with a bf16 wire, with the
+   two-level calls' per-tier bytes (one NVLink box: both tiers are
+   NVLink);
 16. dp4 (four cards; not in the default run, which needs one): gpt_small
    data-parallel training over NCCL, four ranks each on its own seeded
    B=8 x S=2048 batch, through the plain, overlapped and ZeRO steps of
@@ -298,13 +307,37 @@ if any fails:
    step: 32 sm90 forwards, the modeled gather bytes); ``cluster_snapshot``
    at world 1.  Under ``--phases dp4`` each rank also profiles one
    overlapped step (``measured_overlap_exposed`` of the NCCL kernels)
-   and the four ranks take a ``cluster_snapshot``.
+   and the four ranks take a ``cluster_snapshot``;
+20. hier: the two-level collectives on ONE card: four ranks, one
+   process each over gloo (NCCL refuses two ranks on a card), two
+   slices of two (``HVD_TPU_SLICE_SIZE=2``,
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``); gpt_small at full width and
+   depth, B=2 x S=2048 a rank, the loss in fp32 (the cross entropy of
+   the bf16 logits), 3 steps each of the flat step, the flat step with
+   the library's own sum (the association baseline), the
+   routed step, the routed step with a bf16 cross wire, the overlapped
+   routed step and ``zero_train_setup(hierarchical=True)`` with
+   ``DcnCompression("bfloat16", error_feedback=True)``, each after an
+   init of its own (the flag and the wire are read there): every rank's
+   losses equal, finite and falling, 12 launches of each training
+   kernel a step, the routed (fp32 wire) losses within
+   ZERO_LOSS_REL_TOL of the flat ones over the first 3 steps and at
+   every step within HIER_DRIFT_FACTOR times the baseline's drift from
+   them (every step's difference and bound recorded), the overlapped
+   ones bit-identical to the plain
+   routed ones, the ZeRO shard's optimizer state half the replicated
+   one; a dyadic allreduce at gpt_small's parameter shapes bit-equal
+   routed and flat, the tier counters (fp32 and bf16 wire) equal to
+   the model, and the bytes of the calls the primitives recorded equal
+   to the model but on the local tier, where gloo's stand-in for the
+   reduce-scatter (an all-reduce) moves them twice.  Its times stage
+   through the host and measure nothing.
 
 Each main path (serving, tp, spec, disagg, training, overlap, zero,
 remat, resnet, pipeline, ring, parallel, ring4, tp4, guard, elastic,
-observe's bench runs) is driven with the kernels' launch counts set to
-0 just before it and read just after (the elastic, tp and tp4 workers
-count in their own processes).  The card's
+observe's bench runs, hier, hier4) is driven with the kernels' launch
+counts set to 0 just before it and read just after (the elastic, tp,
+tp4, hier and hier4 workers count in their own processes).  The card's
 ``nvidia-smi`` line comes next, then the ``kernels`` JSON on the line
 before the last (one entry per kernel and C entry, the forward's two
 variants apart: ``launches`` from the main paths' runs, the other
@@ -316,10 +349,11 @@ backward, the simt ones at gpt_small's fp32 backward (their path: the
 fp32 training oracle),
 the fused-norm kernels summed over the 53 sites of one ResNet-50 step;
 the sm90 forward launches summed over the serving, tp (both ranks),
-spec, disagg, training, overlap, zero, remat, parallel, guard and
-elastic runs (and tp4's), the paged decode's over the serving, tp, spec
-and disagg runs (and tp4's), dq and dkv over the training, overlap,
-zero, remat, parallel, guard and elastic runs (and tp4's), the
+spec, disagg, training, overlap, zero, remat, parallel, guard,
+elastic and hier runs (and tp4's and hier4's), the paged decode's over
+the serving, tp, spec and disagg runs (and tp4's), dq and dkv over the
+training, overlap, zero, remat, parallel, guard, elastic and hier runs
+(and tp4's and hier4's), the
 fused-norm launches over the resnet, pipeline and observe (two bench
 runs) runs; the six ``*_kv_offset`` entries (the forward, dq and dkv at
 a non-zero offset, each variant) at the ring's own past-block
@@ -330,8 +364,8 @@ the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
 ``--phases`` runs a subset (e.g. ``--phases kernels,training``; overlap
 and zero run training first, whose losses they are held against); the
-default runs all but dp4, ring4 and tp4 (``tp`` runs the serving phase
-first: its streams are the reference).
+default runs all but dp4, ring4, tp4 and hier4 (``tp`` runs the
+serving phase first: its streams are the reference).
 """
 
 from __future__ import annotations
@@ -5754,10 +5788,419 @@ def phase_tp4(device="cuda", preset="gpt_small", b=TRAIN_B, s=TRAIN_S,
     return rec
 
 
+# -- phases hier and hier4: the two-level collectives --------------------------
+
+#: ranks a slice (``HVD_TPU_SLICE_SIZE``) in both phases: two slices of two
+HIER_SLICE = 2
+#: the one-card phase's per-rank batch (four ranks share the card) and steps
+HIER_B, HIER_STEPS = 2, 3
+HIER4_STEPS = 6
+HIER_VARIANTS = ("flat", "flat_lib", "hier", "hier_bf16", "hier_overlap",
+                 "zero_hier_ef")
+#: ``HOROVOD_HIERARCHICAL_ALLREDUCE`` and ``HVD_TPU_DCN_WIRE_DTYPE`` for
+#: each variant's init (the env is read there)
+HIER_ENV = {"flat": ("0", ""), "flat_lib": ("0", ""), "hier": ("1", ""),
+            "hier_bf16": ("1", "bf16"), "hier_overlap": ("1", ""),
+            "zero_hier_ef": ("0", "")}
+#: the routed run's loss may drift from the flat run's at most this many
+#: times as far as the flat run with the library's own sum drifts (the
+#: largest drift of that pair so far, and at least one fp32 step of the
+#: loss, 2^-23 relative): both pairs differ only in how the gradients'
+#: sums associate
+HIER_DRIFT_FACTOR = 8
+
+
+def _inner_state_bytes(opt):
+    """The optimizer's own state bytes (a ZeRO shard's error-feedback
+    residual left out)."""
+    from horovod_tpu_torch.optim import state_bytes
+
+    return state_bytes([{k: v for k, v in st.items() if k != "dcn_residual"}
+                        for st in opt.state.values()])
+
+
+def _fp32_cross_entropy(logits, labels):
+    """The hier phases' loss: the step's cross entropy over its bf16
+    logits, in fp32.  They hold the routed losses against the flat ones,
+    whose gradients add in another order: a bf16 loss would round their
+    last-bit differences to whole bf16 steps of 0.0625 at a loss of
+    10."""
+    from horovod_tpu_torch.training import softmax_cross_entropy
+
+    return softmax_cross_entropy(logits.float(), labels)
+
+
+def hier_variant(tag, device, preset="gpt_small", b=HIER_B, s=TRAIN_S,
+                 steps=HIER_STEPS):
+    """One ``HIER_VARIANTS`` run on this rank: ``preset`` at full width
+    (bf16 over fp32 masters from SEED, AdamW at optax's defaults), this
+    rank's seeded B x S batch, the loss in fp32, ``steps`` steps through
+    ``data_parallel_train_step`` (flat: the flag off; hier: on; bf16:
+    on with a bf16 cross wire; overlap: on, buckets from the hooks;
+    the init set them, ``HIER_ENV``), the flat step with the library's
+    own sum (``flat_lib``: ``grouped_allreduce`` of the gradients, the
+    association baseline) or ``zero_train_setup(hierarchical=True,
+    dcn_compression=DcnCompression("bfloat16", error_feedback=True))``,
+    the training kernels' counts reset just before: losses, launches a
+    step, step times, peak memory, optimizer state bytes."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import Transformer, init_params
+    from horovod_tpu_torch.models import transformer as tm
+
+    cpu = device.type == "cpu"
+    cfg = getattr(tm, preset)(dtype=torch.float32 if cpu else torch.bfloat16,
+                              attention_impl="flash")
+    model = Transformer(cfg, params=init_params(
+        cfg, torch.Generator(device.type).manual_seed(SEED), device=device,
+        param_dtype=torch.float32))
+    toks = torch.as_tensor(np.random.RandomState(SEED + hvd.rank()).randint(
+        0, cfg.vocab_size, size=(b, s + 1)), dtype=torch.long, device=device)
+    x, y = toks[:, :-1], toks[:, 1:]
+    if tag == "zero_hier_ef":
+        state, step = training.zero_train_setup(
+            model, _adamw(model.parameters()), loss_fn=_fp32_cross_entropy,
+            hierarchical=True, dcn_compression=hvd.DcnCompression(
+                "bfloat16", error_feedback=True))
+        opt = state.optimizer
+        assert opt.tiers is not None and opt.sharded
+    elif tag == "flat_lib":
+        opt = _adamw(model.parameters())
+        state = training.create_train_state(model, opt)
+        step = _library_sum_step(model, opt, _fp32_cross_entropy)
+    else:
+        opt = _adamw(model.parameters())
+        state = training.create_train_state(model, opt)
+        step = training.data_parallel_train_step(
+            model, opt, loss_fn=_fp32_cross_entropy,
+            overlap=tag == "hier_overlap")
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    losses, per_step, times = [], [], []
+    for _ in range(steps):
+        before = _train_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        per_step.append([a - c for a, c in zip(_train_counts(), before)])
+    if not cpu:  # every layer's training kernels, the sm90 variants
+        n = cfg.num_layers
+        want = [n, n, n] + [n, 0] * 3
+        assert all(c == want for c in per_step), (tag, per_step, want)
+    steady = times[1:]
+    rec = dict(tag=tag, batch=[b, s], losses=losses, step_s=times,
+               step_ms_mean=1e3 * sum(steady) / len(steady),
+               step_ms_median=1e3 * sorted(steady)[len(steady) // 2],
+               per_step=per_step,
+               launches=dict(zip(TRAIN_COUNTS, _train_counts())),
+               opt_state_bytes=_inner_state_bytes(opt),
+               peak_mem_gb=None if cpu
+               else torch.cuda.max_memory_allocated() / 1e9)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del state, step, model, opt
+    gc.collect()  # the reducer's hooks hold the parameters in a cycle
+    if not cpu:
+        torch.cuda.empty_cache()
+    return rec, shapes
+
+
+def _library_sum_step(model, opt, loss_fn):
+    """The flat data-parallel step with the gradients averaged by the
+    library's own all-reduce (``grouped_allreduce``: NCCL's ring, or
+    gloo's) instead of the rank-ordered sum: the same step, its sums
+    associated otherwise."""
+    import horovod_tpu_torch as hvd
+
+    def step(state, x, y):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        ps = [p for p in model.parameters() if p.grad is not None]
+        for p, g in zip(ps, hvd.grouped_allreduce([p.grad for p in ps],
+                                                  op=hvd.Average)):
+            p.grad = g
+        opt.step()
+        return state, hvd.allreduce(loss.detach(), op=hvd.Average)
+
+    return step
+
+
+def hier_allreduce(shapes, device, timed_reps=0):
+    """The gradients' allreduce at ``shapes`` (the model's parameters,
+    fp32) through ``allreduce_gradients``: dyadic values (every partial
+    sum exact), routed (``hierarchical=True``) and flat, bit-equal; the
+    routed call's measured per-tier bytes (the ``torch.distributed``
+    calls its primitives recorded as they issued them) and the tier
+    counters' increase against the model, bucket by bucket of the
+    fusion plan: the counters book the model, the calls move its bytes
+    exactly over NCCL, and over gloo the local hop's bytes twice over
+    (gloo's stand-in for the reduce-scatter is an all-reduce of the
+    whole bucket); the same with a bf16 wire.  With ``timed_reps`` the four ways to reduce them are timed in
+    turns (host clock, synchronised, barrier first): NCCL's own
+    allreduce of the fused buffers, the flat rank-ordered sum, the
+    two-level sum and the two-level sum with a bf16 wire."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import topology
+    from horovod_tpu_torch.metrics import instruments as I
+    from horovod_tpu_torch.ops import collective_ops as co
+    from horovod_tpu_torch.ops import comm_model as cm
+    from horovod_tpu_torch.ops.fusion import FusionPlan, fuse, fusion_threshold
+
+    t = topology.tiers()
+    world = hvd.size()
+    g = torch.Generator(device.type).manual_seed(SEED + hvd.rank())
+    grads = [torch.randint(-32, 33, sh, generator=g, device=device).float()
+             / 8 for sh in shapes]
+    plan = FusionPlan(grads, fusion_threshold())
+    sizes = [sum(math.prod(plan.specs[i][0]) for i in idxs)
+             for _, idxs in plan.buckets]
+    bf16 = hvd.DcnCompression("bfloat16")
+    rec = dict(grad_bytes=4 * sum(sizes), buckets=len(sizes),
+               n_dcn=t.n_dcn, n_ici=t.n_ici, backend=dist.get_backend())
+    # gloo's reduce-scatter over two ranks is an all-reduce of the bucket
+    staged = rec["backend"] == "gloo" and t.n_ici == 2
+    extra_ici = sum(-(-n // 2) * 2 * 4 // 2 for n in sizes) if staged \
+        else 0
+
+    def routed(wire):
+        ici, dcn = I.COLLECTIVE_ICI_BYTES.get(), I.COLLECTIVE_DCN_BYTES.get()
+        with co.recording() as calls:
+            out = hvd.allreduce_gradients(grads, op=hvd.Sum,
+                                          hierarchical=True,
+                                          dcn_compression=wire)
+        _sync(device)
+        meas = cm.measured_tier_bytes(calls, t.slice_ids())
+        model = [cm.modeled_collective_bytes(
+            (n,), world, t.n_ici, None if wire is None else "bfloat16")
+            for n in sizes]
+        want = [sum(m[k] for m in model) for k in ("ici_bytes", "dcn_bytes")]
+        got = [meas["ici_bytes"], meas["dcn_bytes"]]
+        counted = [I.COLLECTIVE_ICI_BYTES.get() - ici,
+                   I.COLLECTIVE_DCN_BYTES.get() - dcn]
+        assert counted == want, (counted, want)
+        assert got == [want[0] + extra_ici, want[1]], (got, want, extra_ici)
+        return out, dict(modeled=want, measured=got, counters=counted,
+                         measured_minus_modeled=[got[0] - want[0],
+                                                 got[1] - want[1]],
+                         calls=len(calls),
+                         ops=sorted({o["op"] + ":" + o["tier"]
+                                     for o in meas["ops"]}))
+
+    hier, rec["fp32_bytes"] = routed(None)
+    flat = hvd.allreduce_gradients(grads, op=hvd.Sum, hierarchical=False)
+    _sync(device)
+    assert all(torch.equal(a, c) for a, c in zip(hier, flat)), \
+        "routed and flat dyadic sums differ"
+    del hier, flat
+    _, rec["bf16_bytes"] = routed(bf16)
+    rec["bit_equal"] = True
+    if timed_reps:
+        def nccl():
+            bufs = fuse(grads, plan)
+            for w in [dist.all_reduce(b, async_op=True) for b in bufs]:
+                w.wait()
+            return bufs
+
+        ways = {"nccl": nccl,
+                "ordered": lambda: hvd.allreduce_gradients(
+                    grads, op=hvd.Sum, hierarchical=False),
+                "two_level": lambda: hvd.allreduce_gradients(
+                    grads, op=hvd.Sum, hierarchical=True),
+                "two_level_bf16": lambda: hvd.allreduce_gradients(
+                    grads, op=hvd.Sum, hierarchical=True,
+                    dcn_compression=bf16)}
+        order = list(ways) + list(ways)[::-1]
+        timing = {k: [] for k in ways}
+        for i in range(timed_reps * len(order)):
+            name = order[i % len(order)]
+            _sync(device)
+            dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            ways[name]()
+            _sync(device)
+            timing[name].append(time.perf_counter() - t0)
+        rec["allreduce_s"] = timing
+    del grads
+    return rec
+
+
+HIER_WORKER = r"""
+import json, os, sys
+import torch
+os.environ["HVD_TPU_SLICE_SIZE"] = sys.argv[9]
+import horovod_tpu_torch as hvd
+import chip_smoke as cs
+
+rank, world, store, out, device, backend, b, steps = sys.argv[1:9]
+rank, world, b, steps = int(rank), int(world), int(b), int(steps)
+cpu = device == "cpu"
+if cpu:
+    torch.set_num_threads(1)
+
+
+def start(tag, flag, wire):
+    # the flag and the wire are read at init: one init a setting
+    os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = flag
+    os.environ["HVD_TPU_DCN_WIRE_DTYPE"] = wire
+    hvd.init(device=device, rank=rank, size=world,
+             init_method="file://" + store + "." + tag, backend=backend)
+    return hvd.device()
+
+
+preset = "gpt_tiny" if cpu else "gpt_small"
+s = 16 if cpu else cs.TRAIN_S
+res = {"variants": {}}
+for tag in cs.HIER_VARIANTS:
+    dev = start(tag, *cs.HIER_ENV[tag])
+    res["variants"][tag], shapes = cs.hier_variant(tag, dev, preset, b, s,
+                                                   steps)
+    hvd.shutdown()
+dev = start("allreduce", "0", "")
+res["allreduce"] = cs.hier_allreduce(shapes, dev,
+                                     timed_reps=int(sys.argv[10]))
+with open(out, "w") as f:
+    json.dump(res, f)
+hvd.shutdown()
+"""
+
+
+def _hier_checks(recs, name):
+    """The hier phases' checks over every rank's record: losses equal
+    across ranks, finite and falling; hierarchical fp32 within
+    ZERO_LOSS_REL_TOL of flat over the first HIER_STEPS steps, and at
+    every step within HIER_DRIFT_FACTOR times the drift of the flat
+    step with the library's sum (``flat_lib``) from the flat one (the
+    pairs differ only in how the gradients' sums associate, a
+    difference that grows step by step through the bf16 forward; every
+    step's reading and bound is recorded); overlapped hierarchical
+    bit-identical to plain; the ZeRO shard's optimizer state half the replicated one
+    (two ranks a slice, give or take the padding and its step
+    scalars); the allreduce checks ran on every rank.  Returns the
+    phase's record."""
+    var = {}
+    for tag in HIER_VARIANTS:
+        losses = recs[0]["variants"][tag]["losses"]
+        for r in recs[1:]:
+            assert r["variants"][tag]["losses"] == losses, (
+                f"{name} {tag}: ranks disagree on the losses")
+        assert all(math.isfinite(v) for v in losses), (tag, losses)
+        assert losses[-1] < losses[0], f"{name} {tag}: {losses}"
+        v = recs[0]["variants"][tag]
+        var[tag] = dict(losses=losses, step_ms_mean=v["step_ms_mean"],
+                        step_ms_median=v["step_ms_median"],
+                        slowest_rank_ms_mean=max(
+                            r["variants"][tag]["step_ms_mean"] for r in recs),
+                        launches_per_step=v["per_step"][0],
+                        opt_state_bytes=v["opt_state_bytes"],
+                        peak_mem_gb=[r["variants"][tag]["peak_mem_gb"]
+                                     for r in recs])
+    flat = var["flat"]["losses"]
+    by_step = {tag: [abs(a - c) / abs(c) for a, c in
+                     zip(var[tag]["losses"], flat)]
+               for tag in HIER_VARIANTS if tag != "flat"}
+    errs = {tag: max(e[:HIER_STEPS]) for tag, e in by_step.items()}
+    assert errs["hier"] <= ZERO_LOSS_REL_TOL, (var["hier"]["losses"], flat)
+    base = by_step["flat_lib"]
+    bound = [HIER_DRIFT_FACTOR * max(max(base[:k + 1]), 2.0 ** -23)
+             for k in range(len(base))]
+    assert all(e <= b for e, b in zip(by_step["hier"], bound)), (
+        f"{name}: routed drift {by_step['hier']} against the library "
+        f"sum's {base} (bounds {bound})")
+    assert var["hier_overlap"]["losses"] == var["hier"]["losses"], (
+        var["hier_overlap"]["losses"], var["hier"]["losses"])
+    zero, rep = (var["zero_hier_ef"]["opt_state_bytes"],
+                 var["hier"]["opt_state_bytes"])
+    assert abs(zero - rep / HIER_SLICE) <= 1024, (zero, rep)
+    assert var["flat_lib"]["opt_state_bytes"] == rep
+    assert all(r["allreduce"]["bit_equal"] for r in recs)
+    a = recs[0]["allreduce"]
+    rec = dict(variants=var, loss_rel_err_vs_flat=errs,
+               loss_rel_tol=ZERO_LOSS_REL_TOL,
+               loss_rel_err_vs_flat_by_step=by_step,
+               routed_drift_bound_by_step=bound,
+               zero_state_over_replicated=zero / rep,
+               allreduce={k: v for k, v in a.items() if k != "allreduce_s"},
+               launches={k: sum(r["variants"][tag]["launches"][k]
+                                for r in recs for tag in HIER_VARIANTS)
+                         for k in TRAIN_COUNTS})
+    if "allreduce_s" in a:
+        rec["allreduce_ms_median"] = {
+            k: sorted(v)[len(v) // 2] * 1e3 for k, v in
+            a["allreduce_s"].items()}
+        rec["allreduce_ms_all"] = {k: [x * 1e3 for x in v] for k, v in
+                                   a["allreduce_s"].items()}
+    return rec
+
+
+def phase_hier(device="cuda", b=HIER_B, steps=HIER_STEPS, timeout=900):
+    """The two-level collectives on ONE card (HIER_WORKER): four ranks,
+    one process each, over gloo (NCCL refuses two ranks on one card),
+    two slices of two (``HVD_TPU_SLICE_SIZE=2``,
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``); gpt_small at full width and
+    depth, B = 2 x S = 2048 a rank, through every ``HIER_VARIANTS`` run,
+    ``_hier_checks``, and the dyadic allreduce at gpt_small's parameter
+    shapes (``hier_allreduce``).  Gloo stages every collective through
+    the host: the times are no measure of the two-level path."""
+    if device == "cuda":
+        import torch
+
+        from horovod_tpu_torch.ops import _build
+
+        _build.build_all()
+        gc.collect()
+        torch.cuda.empty_cache()
+    dev = "cpu" if device == "cpu" else "cuda:0"
+    recs = _spawn(HIER_WORKER, 4, [dev, "gloo", b, steps, HIER_SLICE, 0],
+                  timeout, "hier")
+    rec = _hier_checks(recs, "hier")
+    rec["note"] = ("four ranks on one card over gloo: every collective "
+                   "stages through the host; no time here measures the "
+                   "two-level path")
+    log("  hier: " + json.dumps(rec))
+    return rec
+
+
+def phase_hier4(device="cuda", b=TRAIN_B, steps=HIER4_STEPS, reps=4,
+                timeout=1500):
+    """The two-level collectives on FOUR cards over NCCL (HIER_WORKER;
+    not in the default run): the hier phase's runs and checks at
+    B = 8 x S = 2048 a rank, their step times, and the gradients'
+    allreduce at gpt_small's parameter shapes timed in turns: NCCL's
+    flat allreduce, the flat rank-ordered sum, the two-level sum and
+    the two-level sum with a bf16 wire, with the two-level calls'
+    per-tier bytes.  One NVLink box: both tiers are NVLink."""
+    world = 4
+    if device == "cuda":
+        import torch
+
+        assert torch.cuda.device_count() >= world, (
+            f"hier4 needs {world} cards, found {torch.cuda.device_count()}")
+        from horovod_tpu_torch.ops import _build
+
+        _build.build_all()
+    backend = "gloo" if device == "cpu" else "nccl"
+    recs = _spawn(HIER_WORKER, world, [device, backend, b, steps,
+                                       HIER_SLICE, reps], timeout, "hier4")
+    rec = _hier_checks(recs, "hier4")
+    log("  hier4: " + json.dumps(rec))
+    return rec
+
+
 PHASES = ("kernels", "serving", "tp", "oracle", "spec", "disagg",
           "training", "overlap", "zero", "training_oracle", "remat",
           "resnet", "resnet_oracle", "pipeline", "ring", "parallel",
-          "guard", "elastic", "observe")
+          "guard", "elastic", "observe", "hier")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -6072,6 +6515,13 @@ def main(argv=None) -> int:
     if "tp4" in phases:
         _phase("tp4")
         tp4 = phase_tp4()
+    hier = hier4 = None
+    if "hier" in phases:
+        _phase("hier")
+        hier = phase_hier()
+    if "hier4" in phases:
+        _phase("hier4")
+        hier4 = phase_hier4()
     runs = [r for r in (train, overlap, zero, remat, guard, elastic) if r]
     if parallel:  # the trainer and the pipeline (the replays are checks)
         runs += [parallel["train"], parallel["pipeline"]]
@@ -6079,7 +6529,8 @@ def main(argv=None) -> int:
         runs.append({"launches": tp["ulysses_launches"]})
     if tp4:  # every rank's trainers, pipeline and ulysses_attention
         runs.append({"launches": tp4["train_launches"]})
-    if runs:  # the training kernels ran on up to six main paths
+    runs += [r for r in (hier, hier4) if r]  # every rank's variants
+    if runs:  # the training kernels ran on these main paths
         train = dict(train or {}, launches={k: sum(
             r["launches"][k] for r in runs) for k in TRAIN_COUNTS})
     entries = (kernel_entries(kern, train_kern, serving, train,

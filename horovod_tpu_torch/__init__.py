@@ -35,7 +35,10 @@ guard (``guard``), elastic state and the elastic run loop
 every collective's counters, latency and spans, the Chrome timeline
 (``HVD_TPU_TIMELINE``, ``start_timeline``), the ``torch.profiler``
 bridge, ``metrics.cluster_snapshot`` and the overlap and serving step
-views, with the benchmark entry ``python -m horovod_tpu_torch.bench``.
+views, with the benchmark entry ``python -m horovod_tpu_torch.bench``,
+and the two-level collectives (``HOROVOD_HIERARCHICAL_ALLREDUCE``:
+``common.topology``, ``ops.hierarchical``, ``DcnCompression``, the
+hierarchical ZeRO exchange and the per-tier byte model).
 Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.
@@ -76,7 +79,8 @@ from .common.exceptions import (
     ProcessSetError,
 )
 from .common.process_sets import ProcessSet, global_process_set
-from .compression import Compression
+from .common.topology import DCN_AXIS, ICI_AXIS, WORLD_AXIS
+from .compression import Compression, DcnCompression
 from .functions import (
     allgather_object,
     broadcast_object,
@@ -134,6 +138,15 @@ def remove_process_set(process_set: ProcessSet) -> None:
     """Unregister a process set (reference: remove_process_set); called
     symmetrically, like :func:`add_process_set`."""
     _basics._require_init().process_set_registry.remove(process_set)
+
+
+def hierarchical_mesh(num_groups=None):
+    """The ``(dcn, ici)`` grid of world ranks for two-level reductions
+    (reference analog: the local/cross communicators of
+    NCCLHierarchicalAllreduce; :func:`.common.topology.hierarchical_mesh`)."""
+    from .common import topology
+
+    return topology.hierarchical_mesh(num_groups)
 
 
 def process_set_ids():

@@ -25,8 +25,10 @@ Where the ranks come from:
 * neither: a single process is world 1, and its rendezvous is a file
   store in a fresh temporary directory — never a fixed TCP port.
 
-``init`` opens the Chrome timeline when ``HVD_TPU_TIMELINE`` (or
-``HOROVOD_TIMELINE``) names a file, as the JAX package's Python fallback
+``init`` resolves the slice layout and builds the two-level
+collectives' local and cross groups (:mod:`.topology`).  It opens the
+Chrome timeline when ``HVD_TPU_TIMELINE`` (or ``HOROVOD_TIMELINE``)
+names a file, as the JAX package's Python fallback
 does; :func:`start_timeline` / :func:`stop_timeline` open and close one
 at runtime.  It also sets the ``hvd_tpu_process_info`` identity gauge.
 """
@@ -70,6 +72,13 @@ class _State:
         #: write a CYCLE instant per gradient flush into the timeline
         self.mark_cycles = False
         self.process_set_registry = ProcessSetRegistry()
+        #: the knobs read at init (utils/env_parser.Config)
+        self.config = None
+        #: the routed collectives' cross-hop wire, resolved at init from
+        #: ``config.dcn_wire_dtype`` (compression.DcnCompression or None)
+        self.dcn_compression = None
+        #: the slice layout and two-level groups (common/topology.py)
+        self.layout = None
 
 
 _state = _State()
@@ -157,6 +166,20 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.device, _state.backend = dev, backend
         _state.process_set_registry.attach_world(size)
+        from . import topology
+
+        try:  # every rank builds the two-level groups here, in one order
+            _state.layout = topology.build(rank, size, local_size)
+        except BaseException:
+            _state.process_set_registry.detach()
+            dist.destroy_process_group()
+            _close_timeline()
+            raise
+        from ..compression import dcn_compression_from_name
+
+        _state.config = config
+        _state.dcn_compression = dcn_compression_from_name(
+            config.dcn_wire_dtype)
         # fault injection: this rank's HVD_TPU_CHAOS plan (no spec = one
         # module bool per injection point)
         from .. import chaos as _chaos
@@ -242,6 +265,7 @@ def shutdown() -> None:
             return
         _close_timeline()
         _state.process_set_registry.detach()
+        _state.layout = None
         if dist.is_initialized() and not _state.abandoned:
             dist.destroy_process_group()
         _state.abandoned = False

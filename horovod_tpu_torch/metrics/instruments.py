@@ -5,12 +5,12 @@ serving slice (speculative decoding, KV migration and the fleet
 router included), the overlapped optimizer, ZeRO, the input pipeline,
 the training loop, the integrity guard, the elastic driver and worker,
 preemption notices, the chaos engine, retries, the flight recorder,
-the collectives (counts, bytes, latency), the overlap inventory and the
-process identity book, under the same names, label sets and buckets
-(the catalogue in docs/METRICS.md describes them).  The instruments
-whose producers are not ported yet (the native controller's, the
-two-level collectives' tier bytes, the framework adapters' gradient
-norm and epoch metrics) are left out.
+the collectives (counts, bytes, per-tier bytes, latency), the overlap
+inventory and the process identity book, under the same names, label
+sets and buckets (the catalogue in docs/METRICS.md describes them).
+The instruments whose producers are not ported yet (the native
+controller's, the framework adapters' gradient norm and epoch metrics)
+are left out.
 """
 
 from __future__ import annotations
@@ -38,6 +38,20 @@ COLLECTIVE_BYTES = counter(
     "hvd_tpu_collective_bytes_total",
     "Tensor bytes submitted to collectives, by op",
     ["op"],
+)
+
+#: Modeled bytes the sum-family collectives moved on the fast
+#: intra-slice fabric (ring model, ops/comm_model.py; booked at dispatch).
+COLLECTIVE_ICI_BYTES = counter(
+    "hvd_tpu_collective_ici_bytes_total",
+    "Modeled intra-slice (ICI) fabric bytes moved by engine collectives",
+)
+
+#: Same, for the slow inter-slice fabric: the number hierarchical
+#: routing and DCN wire compression exist to shrink.
+COLLECTIVE_DCN_BYTES = counter(
+    "hvd_tpu_collective_dcn_bytes_total",
+    "Modeled inter-slice (DCN) fabric bytes moved by engine collectives",
 )
 
 #: End-to-end latency of a negotiated collective: enqueue() to future

@@ -35,6 +35,23 @@ were (the ``spmd_ops`` names stay queued in ROADMAP).
   sum's time for gpt_small's 551 MB of gradients on four H100s over
   NCCL.  Over one or two ranks, and for integers, the two give the
   same bits.
+* With ``HOROVOD_HIERARCHICAL_ALLREDUCE`` (``HVD_TPU_``) set, a Sum or
+  Average allreduce over the world process set takes the two-level path
+  (:mod:`.hierarchical`: local reduce-scatter, cross hop, local
+  all-gather) when the world spans more than one slice
+  (:mod:`..common.topology`), bucket by bucket, bool buckets excepted;
+  the cross hop travels in ``HVD_TPU_DCN_WIRE_DTYPE`` where that names
+  a 16-bit float.  Every other call stays flat, which is the
+  reference's rule, not a fallback; a routed call whose layout cannot
+  be resolved raises.  Each routed bucket books its modeled per-tier
+  bytes (``comm_model.modeled_collective_bytes``) into
+  ``hvd_tpu_collective_{ici,dcn}_bytes_total``; a flat Sum/Average
+  allreduce, reduce-scatter or allgather books its ring stream there
+  too, on the cross tier when the world spans slices (the
+  bottleneck-link view), else on the local one.  Inside
+  :func:`recording` the flat-buffer primitives record each
+  ``torch.distributed`` call as they issue it (the measured side of
+  the byte model).
 * The ``*_async`` forms return a :class:`Handle` at once;
   :func:`synchronize` waits for it and returns the result, :func:`poll`
   says whether it is done.
@@ -76,17 +93,19 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..common import basics
+from ..common import basics, topology
 from ..common.exceptions import HorovodInternalError, ProcessSetError
 from ..metrics import instruments as _metrics
 from ..utils import profiler as _profiler
+from . import hierarchical
+from .comm_model import collective_record, modeled_collective_bytes
 from .fusion import FusionPlan, fuse, fusion_threshold, unfuse
 from .reduce_ops import Average, ReduceOp, Sum
 
 # torch renamed the flat-buffer collectives (2.13 warns on the old names,
 # older releases lack the new ones)
-_all_gather_flat = getattr(dist, "all_gather_single",
-                           dist.all_gather_into_tensor)
+_all_gather_flat_op = getattr(dist, "all_gather_single",
+                              dist.all_gather_into_tensor)
 _reduce_scatter_flat_op = getattr(dist, "reduce_scatter_single",
                                   dist.reduce_scatter_tensor)
 
@@ -315,7 +334,119 @@ def _normalize_op(op: Optional[ReduceOp], average: Optional[bool]
     return ReduceOp(op)
 
 
+# -- hierarchical routing and tier accounting --------------------------------
+
+
+def _route(rop: ReduceOp, process_set=None,
+           hierarchical: Optional[bool] = None) -> Optional[topology.Tiers]:
+    """This rank's two-level tiers when a ``rop`` reduction over
+    ``process_set`` takes the two-level path, else None: the flag
+    (``hierarchical``, default ``HOROVOD_HIERARCHICAL_ALLREDUCE``) is
+    on, the op is Sum or Average, the set is the world, and the world
+    spans more than one slice (reference: ``engine._route_hierarchical``;
+    bool buffers stay flat where they are reduced).  A layout that
+    cannot be resolved raises."""
+    st = basics._require_init()
+    if hierarchical is None:
+        hierarchical = bool(st.config is not None
+                            and st.config.hierarchical_allreduce)
+    if not hierarchical or rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        return None
+    if st.process_set_registry.resolve(process_set).process_set_id != 0:
+        return None
+    return topology.tiers()
+
+
+def routes_hierarchical(op: ReduceOp, process_set=None) -> bool:
+    """Whether an allreduce with ``op`` over ``process_set`` takes the
+    two-level path (reference: ``CollectiveEngine.routes_hierarchical``)."""
+    return _route(ReduceOp(op), process_set) is not None
+
+
+def _dcn_compression(explicit=None):
+    """The cross-hop compression of a routed call: ``explicit`` when
+    given, else the one ``init`` resolved from
+    ``HVD_TPU_DCN_WIRE_DTYPE`` (stateless, no error feedback) or None."""
+    if explicit is not None:
+        return explicit
+    return basics._require_init().dcn_compression
+
+
+def _account_tier_bytes(ici: int, dcn: int) -> None:
+    if ici:
+        _metrics.COLLECTIVE_ICI_BYTES.inc(int(ici))
+    if dcn:
+        _metrics.COLLECTIVE_DCN_BYTES.inc(int(dcn))
+
+
+def _account_flat(nbytes: int, n: int, factor: float = 2.0) -> None:
+    """Book a flat collective's ring stream over ``n`` ranks,
+    ``factor·(n-1)/n·nbytes`` (2 for an allreduce, 1 for a
+    reduce-scatter or allgather), on the cross tier when the world
+    spans slices and on the local tier otherwise."""
+    if n <= 1 or not nbytes:
+        return
+    stream = int(factor * (n - 1) * nbytes // n)
+    layout = basics._state.layout
+    if layout is not None and layout.tiers is not None:
+        _account_tier_bytes(0, stream)
+    else:
+        _account_tier_bytes(stream, 0)
+
+
+def _account_hierarchical(buf: torch.Tensor, tiers: topology.Tiers,
+                          wire) -> None:
+    """Book one routed buffer's modeled per-tier bytes."""
+    m = modeled_collective_bytes(
+        (buf.numel(),), tiers.size, tiers.n_ici,
+        wire_dtype=None if wire is None else wire.wire_dtype,
+        dtype=buf.dtype)
+    _account_tier_bytes(m["ici_bytes"], m["dcn_bytes"])
+
+
 # -- the sum of a flat buffer ------------------------------------------------
+
+#: the open :func:`recording` block's list, or None
+_records: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect a record (``comm_model.collective_record``) of every
+    ``torch.distributed`` call that the flat-buffer primitives below
+    issue inside the block: the op they hand to the backend, the bytes
+    of the buffer they hand over and the group's world ranks.  Yields
+    the list, which ``comm_model.measured_tier_bytes`` reads."""
+    global _records
+    outer, _records = _records, []
+    try:
+        yield _records
+    finally:
+        if outer is not None:
+            outer.extend(_records)
+        _records = outer
+
+
+def _record(op: str, t: torch.Tensor, group) -> None:
+    if _records is not None:
+        ranks = dist.get_process_group_ranks(
+            dist.group.WORLD if group is None else group)
+        _records.append(collective_record(
+            op, t.numel() * t.element_size(), ranks))
+
+
+def _all_gather_flat(out: torch.Tensor, inp: torch.Tensor, group=None,
+                     async_op: bool = False):
+    """``all_gather_into_tensor``, recorded."""
+    _record("all_gather", out, group)
+    return _all_gather_flat_op(out, inp, group=group, async_op=async_op)
+
+
+def _all_to_all_flat(out: torch.Tensor, inp: torch.Tensor, group=None,
+                     async_op: bool = False):
+    """``all_to_all_single`` in equal splits, recorded."""
+    _record("all_to_all", inp, group)
+    return dist.all_to_all_single(out, inp, group=group, async_op=async_op)
 
 
 def _rank_ordered(dtype: torch.dtype, n: int) -> bool:
@@ -360,14 +491,16 @@ def _reduce_scatter_start(buf: torch.Tensor, group, n: int, me: int
         return [], lambda: out
     if _rank_ordered(buf.dtype, n):
         recv = torch.empty_like(buf)
-        work = dist.all_to_all_single(recv, buf, group=group, async_op=True)
+        work = _all_to_all_flat(recv, buf, group=group, async_op=True)
         return [work], lambda: _sum_rows(recv.view(n, -1))
     if basics._require_init().backend == "nccl":
         part = buf.new_empty(buf.numel() // n)
+        _record("reduce_scatter", buf, group)
         work = _reduce_scatter_flat_op(part, buf, group=group, async_op=True)
         return [work], lambda: part
     # gloo: reduce all, keep the slice
     full = buf.clone()
+    _record("all_reduce", full, group)
     work = dist.all_reduce(full, group=group, async_op=True)
     return [work], lambda: full.view(n, -1)[me].clone()
 
@@ -391,13 +524,14 @@ def _sum_async(buf: torch.Tensor, group, n: int, me: int, ordered: bool
     when the handle is waited on; every rank waits on its handles in
     the same order, so the allgathers pair up."""
     if not (ordered and _rank_ordered(buf.dtype, n)):
+        _record("all_reduce", buf, group)
         return [dist.all_reduce(buf, group=group, async_op=True)], \
             lambda: buf
     numel = buf.numel()
     buf = _pad_to(buf, n)
     recv = torch.empty_like(buf)
     full = torch.empty_like(buf)
-    a2a = dist.all_to_all_single(recv, buf, group=group, async_op=True)
+    a2a = _all_to_all_flat(recv, buf, group=group, async_op=True)
 
     def gather():
         a2a.wait()
@@ -415,11 +549,25 @@ def _sum_async(buf: torch.Tensor, group, n: int, me: int, ordered: bool
 
 
 def _allreduce_flat_async(buf: torch.Tensor, rop: ReduceOp, group, n: int,
-                          me: int, process_set, ordered: bool
+                          me: int, process_set, ordered: bool,
+                          tiers: Optional[topology.Tiers] = None,
+                          wire=None
                           ) -> Tuple[List, Callable[[], torch.Tensor]]:
     """Start the reduction of a 1-D buffer (the caller's own copy) with
     ``rop``: ``(works, result)``.  Average divides the sum by ``n`` in
-    the buffer's dtype once the works are done."""
+    the buffer's dtype once the works are done.  With ``tiers``
+    (:func:`_route`'s) a Sum or Average of a non-bool buffer takes the
+    two-level path, its cross hop in ``wire``'s dtype where that narrows
+    it."""
+    if tiers is not None and rop in (ReduceOp.SUM, ReduceOp.AVERAGE) \
+            and buf.dtype != torch.bool:
+        _account_hierarchical(buf, tiers, wire)
+        works, res = hierarchical.two_level_sum_start(buf, tiers, wire)
+        if rop == ReduceOp.AVERAGE:
+            return works, lambda: _divide(res()[0], n)
+        return works, lambda: res()[0]
+    if rop in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        _account_flat(buf.numel() * buf.element_size(), n)
     if rop == ReduceOp.ADASUM:
         from .adasum import adasum_allreduce
 
@@ -430,6 +578,7 @@ def _allreduce_flat_async(buf: torch.Tensor, rop: ReduceOp, group, n: int,
         if rop == ReduceOp.AVERAGE:
             return works, lambda: _divide(res(), n)
         return works, res
+    _record("all_reduce", buf, group)
     return [dist.all_reduce(buf, op=_DIST_OP[rop], group=group,
                             async_op=True)], lambda: buf
 
@@ -438,19 +587,26 @@ def _allreduce_flat_async(buf: torch.Tensor, rop: ReduceOp, group, n: int,
 
 
 def _allreduce_async(tensor: Any, rop: ReduceOp, prescale_factor: float,
-                     postscale_factor: float, process_set, ordered: bool
-                     ) -> Handle:
+                     postscale_factor: float, process_set, ordered: bool,
+                     hierarchical: Optional[bool] = None,
+                     dcn_compression=None) -> Handle:
+    """The fused allreduce's launch: one reduction a fusion bucket, each
+    routed by :func:`_route` (``hierarchical`` None = the flag);
+    ``dcn_compression`` None = the ``HVD_TPU_DCN_WIRE_DTYPE`` one."""
     sum_like = rop in (ReduceOp.SUM, ReduceOp.AVERAGE)
     if not sum_like and (prescale_factor != 1.0 or postscale_factor != 1.0):
         raise ValueError(
             f"prescale/postscale factors are not supported with op={rop!r}")
     group, n, me = _scope(process_set)
+    tiers = _route(rop, process_set, hierarchical) if n > 1 else None
+    wire = _dcn_compression(dcn_compression) if tiers is not None else None
     leaves, build = _flatten(tensor)
     plan = FusionPlan(leaves, fusion_threshold())
     works, results = [], []
     for b in fuse(leaves, plan):
         w, res = _allreduce_flat_async(_scale(b, prescale_factor), rop,
-                                       group, n, me, process_set, ordered)
+                                       group, n, me, process_set, ordered,
+                                       tiers, wire)
         works += w
         results.append(res)
 
@@ -520,6 +676,7 @@ def _gather_leaf(t: torch.Tensor, group, n: int) -> torch.Tensor:
         buf = torch.cat([buf, pad])
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
+    _account_flat(n * buf.numel() * buf.element_size(), n, 1.0)
     return torch.cat([p[:s] for p, s in zip(parts, sizes)])
 
 
@@ -701,6 +858,7 @@ def reducescatter_async(tensor: Any, op: ReduceOp = Sum,
     def start():
         works, results = [], []
         for t in leaves:
+            _account_flat(t.numel() * t.element_size(), n, 1.0)
             w, res = _reduce_scatter_start(
                 t.detach().reshape(-1).contiguous(), group, n, me)
             works += w

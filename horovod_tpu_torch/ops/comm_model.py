@@ -1,26 +1,39 @@
 """Byte and timing models (a subset of the JAX package's).
 
 Copied from ``horovod_tpu/ops/comm_model.py``:
+:func:`modeled_collective_bytes`, the per-tier byte model of one
+allreduce (flat or two-level, with or without a cross-tier wire dtype;
+the JAX module's docstring and docs/COLLECTIVES.md derive it),
 :func:`modeled_serve_psum_bytes` (the tensor-sharded serving step's
 all-reduce bytes), :func:`modeled_kvsnap_bytes`
 and its measured twin :func:`measured_kvsnap_bytes`, the pair the fleet
 router's warm handoffs and migrations are held to (modeled == measured,
 exactly), and :func:`modeled_overlap_exposed`, the timing model of the
-bucketed backward/collective overlap.  :func:`overlap_inventory` is the
-JAX function's counterpart over the port's own record of a step: the
-JAX one reads a lowered StableHLO program, which eager PyTorch does not
-have, so the hooked reducer (``optim._BucketReducer``) records what it
-launched instead.  The tier-byte inventories of that module wait for
-the port of the hierarchical collectives.
+bucketed backward/collective overlap.
+
+The measured sides read the port's own records, where the JAX package
+reads a lowered StableHLO program, which eager PyTorch does not have.
+:func:`overlap_inventory` reads what the hooked reducer
+(``optim._BucketReducer``) launched in a step.  :func:`measured_tier_bytes`
+reads the records that the flat-buffer primitives of
+:mod:`.collective_ops` keep, inside ``collective_ops.recording()``, of
+each ``torch.distributed`` call they issue: its kind, the bytes it
+hands over (the operand of a reduce-style call or an all-to-all, the
+result of a gather) and its group's ranks.  The ring-stream factor turns
+those bytes into per-rank link bytes as the JAX inventory does, and a
+group whose ranks span more than one slice counts on the cross (DCN)
+tier, any other on the local (ICI) tier.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["measured_kvsnap_bytes", "modeled_kvsnap_bytes",
+__all__ = ["collective_record", "measured_kvsnap_bytes",
+           "measured_tier_bytes", "mesh_slice_ids",
+           "modeled_collective_bytes", "modeled_kvsnap_bytes",
            "modeled_overlap_exposed", "modeled_serve_psum_bytes",
            "overlap_inventory"]
 
@@ -39,6 +52,151 @@ def _itemsize(dtype) -> int:
     if name in _ITEMSIZE:
         return _ITEMSIZE[name]
     return int(np.dtype(dtype).itemsize)
+
+
+#: Accepted short spellings for wire dtypes (as compression.py's).
+_DTYPE_ALIAS = {"bf16": "bfloat16", "fp16": "float16", "half": "float16"}
+
+
+def _dtype_name(dtype) -> str:
+    name = str(dtype).split(".")[-1]
+    return _DTYPE_ALIAS.get(name, name)
+
+
+def _payload_itemsize(dtype) -> int:
+    """Bytes per element of a payload or wire dtype: a name, a short
+    spelling, a numpy or a torch dtype; ``ValueError`` for an unknown
+    one."""
+    name = _dtype_name(dtype)
+    if name in _ITEMSIZE:
+        return _ITEMSIZE[name]
+    import torch
+
+    dt = getattr(torch, name, None)
+    if isinstance(dt, torch.dtype):
+        return dt.itemsize
+    try:
+        return int(np.dtype(name).itemsize)
+    except TypeError:
+        raise ValueError(
+            f"unknown dtype {dtype!r} in the collective byte model"
+        ) from None
+
+
+def modeled_collective_bytes(
+    shape: Sequence[int],
+    world: int,
+    n_ici: int,
+    wire_dtype: Optional[str] = None,
+    dtype: str = "float32",
+) -> dict:
+    """Modeled per-tier bytes of ONE allreduce of ``shape`` (copied from
+    the JAX package).
+
+    ``world`` ranks take part, ``n_ici`` of them a slice: ``world`` =
+    flat over one slice, all on the local tier; ``1`` = flat over a
+    world that spans slices, every ring step's bytes attributed to the
+    cross tier (its bottleneck link); anything between = the two-level
+    routing: a local reduce-scatter and all-gather of the payload padded
+    to a multiple of ``n_ici``, ``2·(n_ici-1)/n_ici · padded`` bytes,
+    and a cross hop of the 1/n_ici shard: an all-reduce,
+    ``2·(n_dcn-1)/n_dcn · shard``, or, with a wire dtype that narrows a
+    floating payload, an all-gather of the wire shard summed locally in
+    full precision, ``(n_dcn-1) · wire_shard``.  ``wire_dtype``: None,
+    ``"bfloat16"``, ``"float16"`` or a short spelling; ``dtype``: the
+    payload's.  Bytes per rank (local) and per slice-boundary link
+    (cross), without protocol framing.  Returns ``{"ici_bytes",
+    "dcn_bytes", "wire_dtype", "algorithm"}``."""
+    world = int(world)
+    n_ici = int(n_ici)
+    if world < 1 or n_ici < 1 or (n_ici > 1 and world % n_ici):
+        raise ValueError(
+            f"invalid world={world} / n_ici={n_ici} (n_ici must divide)")
+    n = int(np.prod(np.asarray(list(shape), dtype=np.int64))) if len(
+        tuple(shape)) else 1
+    item = _payload_itemsize(dtype)
+    payload = n * item
+    wire_name = _dtype_name(wire_dtype) if wire_dtype else None
+    if world == 1:
+        return {"ici_bytes": 0, "dcn_bytes": 0, "wire_dtype": None,
+                "algorithm": "local"}
+    if n_ici == world:
+        return {"ici_bytes": int(2 * (world - 1) * payload // world),
+                "dcn_bytes": 0, "wire_dtype": None, "algorithm": "flat"}
+    if n_ici == 1:
+        return {"ici_bytes": 0,
+                "dcn_bytes": int(2 * (world - 1) * payload // world),
+                "wire_dtype": None, "algorithm": "flat"}
+    n_dcn = world // n_ici
+    padded = -(-n // n_ici) * n_ici  # ceil to the scatter multiple
+    shard = padded // n_ici
+    # the wire engages only where compress_shard narrows the payload
+    # (floating, wider than the wire); otherwise the hop is the
+    # uncompressed all-reduce and the model follows it
+    compressible = (wire_name is not None
+                    and "float" in _dtype_name(dtype)
+                    and _payload_itemsize(wire_name) < item)
+    if compressible:
+        dcn = int((n_dcn - 1) * shard * _payload_itemsize(wire_name))
+    else:
+        dcn = int(2 * (n_dcn - 1) * shard * item // n_dcn)
+    return {
+        "ici_bytes": int(2 * (n_ici - 1) * padded * item // n_ici),
+        "dcn_bytes": dcn,
+        "wire_dtype": wire_name if compressible else None,
+        "algorithm": "hierarchical",
+    }
+
+
+def mesh_slice_ids(grid) -> List[int]:
+    """Slice of every rank of a ``(dcn, ici)`` rank grid
+    (``hierarchical_mesh()``), indexed by world rank: row ``d`` is slice
+    ``d``."""
+    grid = np.asarray(grid)
+    ids = [0] * grid.size
+    for d, row in enumerate(grid):
+        for r in row:
+            ids[int(r)] = d
+    return ids
+
+
+#: ring-stream factor per collective kind: a rank moves ``factor ·
+#: (g-1)/g`` bytes per byte of the payload over a group of g
+_COLLECTIVE_FACTOR = {"all_reduce": 2.0, "all_gather": 1.0,
+                      "reduce_scatter": 1.0, "all_to_all": 1.0}
+
+
+def collective_record(op: str, payload_bytes: int,
+                      group: Sequence[int]) -> Dict[str, object]:
+    """One record of a ``torch.distributed`` call for
+    :func:`measured_tier_bytes`: ``op`` (``all_reduce``, ``all_gather``,
+    ``reduce_scatter``, ``all_to_all``), the bytes it hands over (the
+    operand; a gather's result) and its group's world ranks."""
+    g = len(group)
+    stream = int(_COLLECTIVE_FACTOR[op] * (g - 1) * payload_bytes // g)
+    return {"op": op, "payload_bytes": int(payload_bytes),
+            "group": tuple(int(r) for r in group), "group_size": g,
+            "stream_bytes": stream}
+
+
+def measured_tier_bytes(records: Sequence[Dict[str, object]],
+                        slice_ids: Sequence[int]) -> Dict[str, object]:
+    """Per-tier link bytes of recorded collectives (the counterpart of
+    the JAX function, which reads a lowered program): each record's
+    ring-stream bytes count on the cross (DCN) tier when its group spans
+    more than one slice of ``slice_ids`` (world rank -> slice) and on
+    the local (ICI) tier otherwise.  Returns ``{"ici_bytes",
+    "dcn_bytes", "ops": [per-call records with their tier]}``."""
+    ici = dcn = 0
+    ops = []
+    for rec in records:
+        crosses = len({slice_ids[r] for r in rec["group"]}) > 1
+        if crosses:
+            dcn += rec["stream_bytes"]
+        else:
+            ici += rec["stream_bytes"]
+        ops.append(dict(rec, tier="dcn" if crosses else "ici"))
+    return {"ici_bytes": int(ici), "dcn_bytes": int(dcn), "ops": ops}
 
 
 def modeled_serve_psum_bytes(

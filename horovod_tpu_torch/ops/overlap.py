@@ -96,7 +96,7 @@ def measured_overlap_exposed(prof) -> Optional[float]:
 
 class Candidate(NamedTuple):
     """One autotuner trial point: bucket size and (for the two-level
-    collectives, not ported) the slow hop's wire dtype."""
+    collectives, :mod:`.hierarchical`) the cross hop's wire dtype."""
 
     bucket_bytes: int
     wire_dtype: Optional[str] = None

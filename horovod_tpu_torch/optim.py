@@ -40,25 +40,46 @@ from .common import basics
 from .common.retry import env_int
 from .compression import Compression
 from .metrics import instruments as _metrics
-from .ops import collective_ops
+from .ops import collective_ops, hierarchical
+from .ops.comm_model import modeled_collective_bytes
 from .ops.fusion import BucketSchedule, dtype_name, fusion_threshold
 from .ops.reduce_ops import Average, ReduceOp
 from .utils.env_parser import Config
 
 
+def _stateless(dcn_compression, where: str) -> None:
+    if dcn_compression is not None and dcn_compression.error_feedback:
+        raise ValueError(
+            f"{where} is stateless: use ops.hierarchical."
+            f"hierarchical_allreduce(residual=...) or "
+            f"ZeroDistributedOptimizer to carry the error-feedback residual")
+
+
 def allreduce_gradients(grads: Any, op: ReduceOp = Average,
                         prescale_factor: float = 1.0,
                         postscale_factor: float = 1.0,
-                        process_set=None) -> Any:
+                        process_set=None,
+                        hierarchical: Optional[bool] = None,
+                        dcn_compression=None) -> Any:
     """Reduce a tensor / list / dict of gradients across ranks through
     per-dtype fused buckets; returns the reduced tree (Average = SUM,
     then a division by the set's size in the gradients' dtype).  A
     floating sum adds the ranks in rank order, as the optimizers'
-    buckets do, so the bits do not depend on the buckets."""
+    buckets do, so the bits do not depend on the buckets.
+
+    ``hierarchical`` (default: the ``HOROVOD_HIERARCHICAL_ALLREDUCE``
+    flag) takes the two-level path (:mod:`.ops.hierarchical`) for a Sum
+    or Average over the world when it spans more than one slice; the
+    sum is then (each slice's sum) added across slices in slice order.
+    ``dcn_compression`` (default: ``HVD_TPU_DCN_WIRE_DTYPE``'s) casts
+    only the cross-tier shard; it must be stateless here (error feedback
+    raises)."""
+    _stateless(dcn_compression, "allreduce_gradients")
     return collective_ops._submit(
         None, "allreduce", grads, lambda: collective_ops._allreduce_async(
             grads, ReduceOp(op), prescale_factor, postscale_factor,
-            process_set, ordered=True)).wait()
+            process_set, ordered=True, hierarchical=hierarchical,
+            dcn_compression=dcn_compression)).wait()
 
 
 def _unique(params: Iterable[torch.Tensor]) -> List[torch.Tensor]:
@@ -83,7 +104,14 @@ class _BucketReducer:
     ``HVD_TPU_OVERLAP_BUCKET_BYTES`` with overlap and to the fusion
     threshold without.  ``always_armed=False`` makes the hooks act only
     inside :meth:`backward`, so a training step's hooks never fire for
-    another loop's backward over the same model."""
+    another loop's backward over the same model.  ``hierarchical``
+    (default: the ``HOROVOD_HIERARCHICAL_ALLREDUCE`` flag) routes every
+    bucket through the two-level sum where
+    ``collective_ops._route`` allows it, overlapped or not, its cross hop
+    in ``dcn_compression``'s wire dtype (default:
+    ``HVD_TPU_DCN_WIRE_DTYPE``'s; stateless).  Its sum does not depend
+    on the buckets either, so overlapped and plain steps stay
+    bit-identical under it."""
 
     def __init__(self, params: Iterable[torch.Tensor], *,
                  op: ReduceOp = Average, process_set=None,
@@ -91,9 +119,12 @@ class _BucketReducer:
                  compression=Compression.none,
                  backward_passes_per_step: int = 1,
                  gradient_predivide_factor: float = 1.0,
-                 overlap: bool = True, always_armed: bool = True):
+                 overlap: bool = True, always_armed: bool = True,
+                 hierarchical: Optional[bool] = None,
+                 dcn_compression=None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        _stateless(dcn_compression, "the gradient reducer")
         if bucket_bytes is None:
             bucket_bytes = (Config.from_env().overlap_bucket_bytes if overlap
                             else fusion_threshold())
@@ -102,6 +133,11 @@ class _BucketReducer:
         self._op = ReduceOp(op)
         self._process_set = process_set
         self._group, self._n, self._me = collective_ops._scope(process_set)
+        self._tiers = (collective_ops._route(self._op, process_set,
+                                             hierarchical)
+                       if self._n > 1 else None)
+        self._wire = (collective_ops._dcn_compression(dcn_compression)
+                      if self._tiers is not None else None)
         self._compression = compression
         self._passes_per_step = backward_passes_per_step
         self._predivide = gradient_predivide_factor
@@ -177,7 +213,8 @@ class _BucketReducer:
                 lambda: collective_ops.Handle(
                     *collective_ops._allreduce_flat_async(
                         flat, self._op, self._group, self._n, self._me,
-                        self._process_set, ordered=True)))
+                        self._process_set, ordered=True, tiers=self._tiers,
+                        wire=self._wire)))
         # launch lead: parameters still awaiting gradients at this launch
         # (none once the backward is over)
         pending = len(self.params) - self._ready if from_hook else 0
@@ -261,7 +298,11 @@ class DistributedOptimizer(_Wrapper):
     reduction without stepping (for clipping), and
     ``skip_synchronize()`` makes the next ``step()`` use the gradients
     as they stand.  The bucket size is ``HVD_TPU_OVERLAP_BUCKET_BYTES``
-    (4 MiB); ``close()`` removes the hooks."""
+    (4 MiB); ``close()`` removes the hooks.  ``hierarchical`` (default:
+    the ``HOROVOD_HIERARCHICAL_ALLREDUCE`` flag) selects the two-level
+    reduction for a world that spans slices, and ``dcn_compression``
+    then casts only its cross-tier shard (where ``compression`` casts
+    the whole gradient around the whole reduction)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[
@@ -270,7 +311,9 @@ class DistributedOptimizer(_Wrapper):
                  backward_passes_per_step: int = 1,
                  op: ReduceOp = Average,
                  gradient_predivide_factor: float = 1.0,
-                 process_set=None):
+                 process_set=None,
+                 hierarchical: Optional[bool] = None,
+                 dcn_compression=None):
         super().__init__(optimizer)
         if named_parameters is not None:
             named = list(named_parameters)
@@ -282,7 +325,8 @@ class DistributedOptimizer(_Wrapper):
         self._reducer = _BucketReducer(
             params, op=op, process_set=process_set, compression=compression,
             backward_passes_per_step=backward_passes_per_step,
-            gradient_predivide_factor=gradient_predivide_factor)
+            gradient_predivide_factor=gradient_predivide_factor,
+            hierarchical=hierarchical, dcn_compression=dcn_compression)
         self._synchronized = False
         self._should_synchronize = True
 
@@ -519,9 +563,31 @@ class ZeroDistributedOptimizer(_Wrapper):
     below this many parameter bytes in all, the state stays replicated
     and the gradients take one allreduce.  Unlike the JAX package's, the
     flat path runs at world 1 as well (its state is then the whole
-    model's), so one card drives it.  ``hierarchical`` and
-    ``dcn_compression`` need the two-level collectives, not ported yet.
-    """
+    model's), so one card drives it.
+
+    ``hierarchical`` (default: the ``HOROVOD_HIERARCHICAL_ALLREDUCE``
+    flag) selects the two-level exchange when the world process set
+    spans more than one slice of more than one rank
+    (:mod:`.common.topology`): the plan shards over the ``n_local``
+    ranks of a slice, this rank's shard is its position in the slice;
+    the gradients reduce-scatter over the local group
+    (``zero.grads.local``), only the 1/n_local shard crosses to the
+    other slices (``zero.grads.cross``: a sum over the cross group),
+    and the updated shards all-gather back over the local group
+    (``zero.updates.local``); each hop books its share of the modeled
+    bytes (:meth:`_tier_bytes`) into
+    ``hvd_tpu_collective_{ici,dcn}_bytes_total``.  The optimizer state is then sharded
+    1/n_local within a slice and replicated across slices (the ZeRO++
+    secondary partition).  ``dcn_compression`` casts the cross hop's
+    shard to its wire dtype: every rank gathers the slices' wire shards
+    and sums them in the gradients' dtype, slices in order (the JAX
+    package's eager exchange all-reduces in the wire dtype; its SPMD
+    one, and this one, accumulate at full precision).  With
+    ``error_feedback`` the quantization residual of each shard lives in
+    the optimizer's state (``state[shard]["dcn_residual"]``), so
+    ``state_dict()`` / ``load_state_dict()``, checkpoints and
+    ``elastic.TpuState`` carry it.  ``tiers`` is the layout in use
+    (None: the flat exchange)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  op: ReduceOp = Average, process_set=None,
@@ -529,10 +595,6 @@ class ZeroDistributedOptimizer(_Wrapper):
                  min_total_bytes: Optional[int] = None,
                  hierarchical: Optional[bool] = None,
                  dcn_compression=None):
-        if hierarchical or dcn_compression is not None:
-            raise NotImplementedError(
-                "hierarchical ZeRO and DCN compression need the two-level "
-                "collectives, which are not ported")
         op = ReduceOp(op)
         if op not in (ReduceOp.AVERAGE, ReduceOp.SUM):
             raise ValueError(f"ZeroDistributedOptimizer supports Sum/Average,"
@@ -544,15 +606,24 @@ class ZeroDistributedOptimizer(_Wrapper):
         self.process_set = process_set
         self.backward_passes_per_step = backward_passes_per_step
         _, self._world, self._me = collective_ops._scope(process_set)
+        tiers = (collective_ops._route(op, process_set, hierarchical)
+                 if self._world > 1 else None)
+        self.tiers = tiers if tiers is not None and tiers.n_ici > 1 else None
+        self.dcn_compression = dcn_compression
+        self._hierarchical = hierarchical
+        n_plan, self._shard_index = ((self.tiers.n_ici, self.tiers.position)
+                                     if self.tiers else
+                                     (self._world, self._me))
         self._groups = [_unique(g["params"]) for g in optimizer.param_groups]
-        self.plans = [ZeroPlan(ps, self._world) for ps in self._groups]
+        self.plans = [ZeroPlan(ps, n_plan) for ps in self._groups]
         self.sharded = sum(p.total_bytes for p in self.plans) >= \
             _zero_min_bytes(min_total_bytes)
         self._flat_params = [p for ps in self._groups for p in ps]
         if not self.sharded:
             return
         self._shards = [
-            [torch.nn.Parameter(s) for s in plan.shards(ps, self._me)]
+            [torch.nn.Parameter(s) for s in plan.shards(ps,
+                                                        self._shard_index)]
             for plan, ps in zip(self.plans, self._groups)]
         groups = []
         for g, shards in zip(optimizer.param_groups, self._shards):
@@ -586,6 +657,81 @@ class ZeroDistributedOptimizer(_Wrapper):
         self._step(reduce=True)
         return loss
 
+    def _two_level_grads(self, plan: ZeroPlan, ps: List[torch.Tensor],
+                         shards: List[torch.nn.Parameter]
+                         ) -> Tuple[List[torch.Tensor], List[Any]]:
+        """The hierarchical exchange's first two collectives: this rank's
+        gradient shards, reduced over the world, and their new
+        error-feedback residuals (None without feedback)."""
+        t, comp = self.tiers, self.dcn_compression
+        bufs = plan.flatten(self._grads(ps))
+        tier_bytes = [self._tier_bytes(buf) for buf in bufs]
+
+        def local():
+            works, results = [], []
+            for buf, (ici, _) in zip(bufs, tier_bytes):
+                collective_ops._account_tier_bytes(ici // 2, 0)
+                w, res = collective_ops._reduce_scatter_start(
+                    buf, t.local_group, t.n_ici, t.position)
+                works += w
+                results.append(res)
+            return collective_ops.Handle(
+                works, lambda: [res() for res in results])
+
+        pieces = collective_ops._submit("zero.grads.local", "reducescatter",
+                                        bufs, local).wait()
+        residuals = [self.optimizer.state.get(sh, {}).get("dcn_residual")
+                     for sh in shards]
+        crossed = [None] * len(pieces)
+
+        def cross():
+            for k, (piece, res) in enumerate(zip(pieces, residuals)):
+                collective_ops._account_tier_bytes(0, tier_bytes[k][1])
+                crossed[k] = hierarchical._cross_sum(piece, t, comp, res)
+            return collective_ops._ready([g for g, _ in crossed])
+
+        sums = collective_ops._submit("zero.grads.cross", "allreduce",
+                                      pieces, cross).wait()
+        g_shards = [collective_ops._divide(g, self._world)
+                    if self.op == ReduceOp.AVERAGE else g for g in sums]
+        feedback = comp is not None and comp.error_feedback
+        return g_shards, [r if feedback else None for _, r in crossed]
+
+    def _tier_bytes(self, buf: torch.Tensor) -> Tuple[int, int]:
+        """The modeled (local, cross) bytes of the two-level exchange of
+        one padded bucket: those of a two-level allreduce of it
+        (``comm_model.modeled_collective_bytes``), half the local ones
+        in the reduce-scatter and half in the all-gather."""
+        comp = self.dcn_compression
+        m = modeled_collective_bytes(
+            (buf.numel(),), self.tiers.size, self.tiers.n_ici,
+            wire_dtype=None if comp is None else comp.wire_dtype,
+            dtype=buf.dtype)
+        return m["ici_bytes"], m["dcn_bytes"]
+
+    def _gather(self, shards: List[torch.nn.Parameter]) -> List[torch.Tensor]:
+        """The updated shards, all-gathered into full flat buffers (over
+        the local group on the two-level exchange)."""
+        if self.tiers is None:
+            group, n, _ = collective_ops._scope(self.process_set)
+        else:
+            group, n = self.tiers.local_group, self.tiers.n_ici
+        full = [s.new_empty(s.numel() * n) for s in shards]
+
+        def gather():
+            for buf, s in zip(full, shards):
+                if self.tiers is not None:
+                    collective_ops._account_tier_bytes(
+                        self._tier_bytes(buf)[0] // 2, 0)
+                collective_ops._all_gather_flat(buf, s.detach(), group=group)
+            return collective_ops._ready(full)
+
+        if self.tiers is None:
+            return gather().wait()
+        return collective_ops._submit("zero.updates.local", "allgather",
+                                      [s.detach() for s in shards],
+                                      gather).wait()
+
     def _step(self, reduce: bool, updates: Optional[list] = None) -> None:
         """Reduce (or, with ``reduce=False``, take the already reduced
         ``.grad``), step the shards, gather them into the parameters.
@@ -595,9 +741,13 @@ class ZeroDistributedOptimizer(_Wrapper):
         if not self.sharded:
             if reduce:
                 for ps in self._groups:
+                    comp = self.dcn_compression
                     for p, g in zip(ps, allreduce_gradients(
                             self._grads(ps), self.op,
-                            process_set=self.process_set)):
+                            process_set=self.process_set,
+                            hierarchical=self._hierarchical,
+                            dcn_compression=None if comp is None
+                            or comp.error_feedback else comp)):
                         p.grad = g
             old = (None if updates is None else
                    [p.detach().clone() for p in self._flat_params])
@@ -606,35 +756,41 @@ class ZeroDistributedOptimizer(_Wrapper):
                 updates.extend(p.detach() - o
                                for p, o in zip(self._flat_params, old))
             return
+        me = self._shard_index
+        residuals = {}
         for plan, ps, shards in zip(self.plans, self._groups, self._shards):
             if reduce:
                 _metrics.OPTIM_RS_BYTES.inc(plan.padded_bytes)
-                g_shards = collective_ops.grouped_reducescatter(
-                    plan.flatten(self._grads(ps)), op=self.op,
-                    process_set=self.process_set)
+                if self.tiers is not None:
+                    g_shards, res = self._two_level_grads(plan, ps, shards)
+                    residuals.update((sh, r) for sh, r in zip(shards, res)
+                                     if r is not None)
+                else:
+                    g_shards = collective_ops.grouped_reducescatter(
+                        plan.flatten(self._grads(ps)), op=self.op,
+                        process_set=self.process_set)
             else:
-                g_shards = plan.shards([p.grad for p in ps], self._me)
+                g_shards = plan.shards([p.grad for p in ps], me)
             with torch.no_grad():
                 # the parameters may have been set since the last step
-                plan.shards([p.detach() for p in ps], self._me,
+                plan.shards([p.detach() for p in ps], me,
                             out=[s.data for s in shards])
             for s, g in zip(shards, g_shards):
                 s.grad = g
         self.optimizer.step()
-        group, n, _ = collective_ops._scope(self.process_set)
+        for sh, r in residuals.items():  # after the inner step's own init
+            self.optimizer.state[sh]["dcn_residual"] = r
         with torch.no_grad():
             for plan, ps, shards in zip(self.plans, self._groups,
                                         self._shards):
                 _metrics.OPTIM_AG_BYTES.inc(plan.shard_bytes)
-                full = []
+                full = self._gather(shards)
                 for s in shards:
-                    buf = s.new_empty(s.numel() * n)
-                    collective_ops._all_gather_flat(buf, s.detach(),
-                                                    group=group)
-                    full.append(buf)
                     s.grad = None
                 for p, v in zip(ps, plan.unflatten(full)):
                     if updates is not None:
                         updates.append(v - p)
                     p.copy_(v)
-        _metrics.OPTIM_STATE_SHARD_BYTES.set(state_bytes(self.optimizer.state))
+        _metrics.OPTIM_STATE_SHARD_BYTES.set(state_bytes(
+            [{k: v for k, v in st.items() if k != "dcn_residual"}
+             for st in self.optimizer.state.values()]))

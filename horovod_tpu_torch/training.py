@@ -15,8 +15,11 @@ backward's hooks (``optim.DistributedOptimizer``'s machinery), and
 makes either step also return the integrity guard's on-device
 diagnostics (:mod:`.guard`).  :func:`fit_epoch` drives an epoch from a
 loader (``data.DataLoader``) with periodic crash-atomic checkpoints
-(:mod:`.checkpoint`) and feeds an armed guard.  Not ported yet (queued
-in ROADMAP.md): two-level ZeRO (``hierarchical=``, ``dcn_compression=``).
+(:mod:`.checkpoint`) and feeds an armed guard.  Under
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` both steps reduce through the
+two-level collectives where the world spans slices (the reducer routes
+its buckets), and :func:`zero_train_setup` takes ``hierarchical=`` and
+``dcn_compression=`` for the two-level ZeRO exchange.
 """
 
 from __future__ import annotations
@@ -201,11 +204,18 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
     them locally (the JAX package's ``pre_reduced`` path): the same bits
     as the reduce-scatter, since a floating sum adds the ranks in one
     order however its buffer is cut.  It takes no model with running
-    statistics.  The parameters start from rank 0's.  ``hierarchical``
-    and ``dcn_compression`` need the two-level collectives, which are
-    not ported.  The JAX version also
-    returns the optimizer state's sharding specs; the port has none to
-    return.
+    statistics.  The parameters start from rank 0's.
+
+    ``hierarchical=True`` selects the two-level exchange where the world
+    spans slices: the state shards over a slice's ranks
+    (:class:`~.optim.ZeroDistributedOptimizer`), and ``dcn_compression``
+    casts only the cross hop's shard.  With
+    ``overlap=True`` the buckets take the two-level sum instead, their
+    cross hop in the compression's wire dtype; error-feedback
+    compression rides the reduce-scatter's residual, which the
+    overlapped exchange does not have, so that pair raises.  The JAX
+    version also returns the optimizer state's sharding specs; the port
+    has none to return.
 
     ``guard=True`` (``None`` = ``HVD_TPU_GUARD``) adds the diagnostics
     as a third step output, from REPLICATED values only, as the JAX
@@ -218,6 +228,12 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
     and loss stay bit-identical to the unguarded step; no collective is
     added."""
     guard = _resolve_guard(guard)
+    if overlap and getattr(dcn_compression, "error_feedback", False):
+        raise ValueError(
+            "overlap=True folds the gradient reduce-scatter into the bucket "
+            "collectives: error_feedback compression (which rides that "
+            "hop's residual) does not compose; use a stateless "
+            "DcnCompression or overlap=False")
     broadcast_parameters(model, 0)  # the JAX version's state starts equal
     zopt = ZeroDistributedOptimizer(inner_optimizer, op=op,
                                     hierarchical=hierarchical,
@@ -228,7 +244,9 @@ def zero_train_setup(model: torch.nn.Module, inner_optimizer,
         _check_overlap(op, stats, model)
         reducer = _BucketReducer(model.parameters(), op=op,
                                  bucket_bytes=bucket_bytes,
-                                 always_armed=False)
+                                 always_armed=False,
+                                 hierarchical=zopt.tiers is not None,
+                                 dcn_compression=dcn_compression)
 
     def step(state: TrainState, inputs, labels
              ) -> Tuple[TrainState, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""The fusion, overlap and timeline knobs, read from the environment.
+"""The fusion, overlap, timeline and two-level collective knobs, read
+from the environment.
 
 Copied from ``horovod_tpu/utils/env_parser.py`` for the knobs the port
 reads: each ``HVD_TPU_<NAME>`` falls back to the reference's
@@ -65,6 +66,11 @@ class Config:
     # Timeline (horovod/common/timeline.cc):
     timeline_filename: str = ""  # HOROVOD_TIMELINE
     timeline_mark_cycles: bool = False  # HOROVOD_TIMELINE_MARK_CYCLES
+    # Hierarchical allreduce (nccl_operations.cc NCCLHierarchicalAllreduce):
+    hierarchical_allreduce: bool = False  # HOROVOD_HIERARCHICAL_ALLREDUCE
+    # cross-tier wire format of routed hierarchical allreduces
+    # (compression.DcnCompression; "" = full precision):
+    dcn_wire_dtype: str = ""  # HVD_TPU_DCN_WIRE_DTYPE
 
     @staticmethod
     def from_env() -> "Config":
@@ -79,4 +85,6 @@ class Config:
                 "OVERLAP_AUTOTUNE_STEPS", 3, minimum=1),
             timeline_filename=_get("TIMELINE", "") or "",
             timeline_mark_cycles=_get_bool("TIMELINE_MARK_CYCLES", False),
+            hierarchical_allreduce=_get_bool("HIERARCHICAL_ALLREDUCE", False),
+            dcn_wire_dtype=(_get("DCN_WIRE_DTYPE", "") or "").lower(),
         )

@@ -53,7 +53,9 @@ def test_port_imports_and_serves_with_jax_blocked():
     inventories import and run, and the rest of ``parallel/`` (the
     Megatron layers, tensor-sharded serving's set, Ulysses, MoE, the
     pipeline and the dp × sp × tp trainer) imports and runs at world 1,
-    with jax, flax, optax and horovod_tpu blocked outright."""
+    and the two-level collectives' modules import and hierarchical ZeRO
+    steps at world 1 (one slice: the flat exchange), with jax, flax,
+    optax and horovod_tpu blocked outright."""
     code = (
         "import sys\n"
         f"for m in {BANNED!r}: sys.modules[m] = None\n"
@@ -196,6 +198,21 @@ def test_port_imports_and_serves_with_jax_blocked():
         "_, ml = mstep(training.create_train_state(mm, mopt),\n"
         "    torch.randint(0, 16, (2, 8)), torch.randint(0, 16, (2, 8)))\n"
         "assert bool(torch.isfinite(ml))\n"
+        "hvd.shutdown()\n"
+        "from horovod_tpu_torch.common import topology\n"
+        "from horovod_tpu_torch.ops import hierarchical\n"
+        "from horovod_tpu_torch import DcnCompression, hierarchical_mesh\n"
+        "hvd.init(device='cpu')\n"
+        "assert hierarchical_mesh().tolist() == [[0]]\n"
+        "assert topology.tiers() is None\n"
+        "assert comm_model.modeled_collective_bytes((8,), 4, 2, 'bf16')[\n"
+        "    'dcn_bytes'] == 8\n"
+        "zm = torch.nn.Linear(3, 2)\n"
+        "zo = hvd.ZeroDistributedOptimizer(torch.optim.SGD(\n"
+        "    zm.parameters(), lr=0.1), hierarchical=True,\n"
+        "    dcn_compression=DcnCompression('bfloat16', error_feedback=True))\n"
+        "zm(torch.ones(1, 3)).sum().backward()\n"
+        "zo.step()\n"
         "hvd.shutdown()\n"
         "assert eng.decode_step_inventory()['gather_bytes'] == 0\n"
         "assert eng.mixed_step_inventory()['gather_bytes'] > 0\n"

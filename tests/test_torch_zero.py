@@ -265,13 +265,17 @@ def test_zero_transformer_matches_jax(world_one):
 
 def test_zero_refusals(world_one):
     model = torch.nn.Linear(3, 2)
-    with pytest.raises(NotImplementedError, match="two-level"):
-        hvd.ZeroDistributedOptimizer(torch.optim.SGD(model.parameters(),
-                                                     lr=0.1),
-                                     hierarchical=True)
-    with pytest.raises(NotImplementedError, match="two-level"):
+    # the two-level exchange is ported (test_torch_zero_hierarchical.py);
+    # a world of one slice keeps the flat exchange
+    ef = hvd.DcnCompression("bfloat16", error_feedback=True)
+    zopt = hvd.ZeroDistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                         lr=0.1),
+                                        hierarchical=True, dcn_compression=ef)
+    assert zopt.tiers is None and zopt.sharded
+    with pytest.raises(ValueError, match="error_feedback"):
         training.zero_train_setup(model, torch.optim.SGD(
-            model.parameters(), lr=0.1), dcn_compression=object())
+            model.parameters(), lr=0.1), hierarchical=True,
+            dcn_compression=ef, overlap=True)
     with pytest.raises(ValueError, match="Sum/Average"):
         hvd.ZeroDistributedOptimizer(torch.optim.SGD(model.parameters(),
                                                      lr=0.1), op=hvd.Max)
