@@ -2763,6 +2763,7 @@ def phase_zero(train):
                opt_state_bytes_per_rank=state_bytes(zopt.state),
                replicated_opt_state_bytes=train.get("opt_state_bytes"))
     rec["profile"] = profile_train(step, state, inputs, labels, "zero")
+    rec["flat_collectives"] = zero_names(step, state, inputs, labels)
     del state, step, model, zopt
     torch.cuda.empty_cache()
     runs = []
@@ -2790,6 +2791,67 @@ def phase_zero(train):
     hvd.shutdown()
     del runs
     torch.cuda.empty_cache()
+    return rec
+
+
+#: one flat ZeRO training step's submissions: the gradients'
+#: reduce-scatter, the updates' all-gather and the loss's mean
+ZERO_STEP_COLLECTIVES = {"reducescatter|eager": 1, "allgather|eager": 1,
+                         "allreduce|eager": 1}
+
+
+def zero_names(step, state, inputs, labels):
+    """One more flat ZeRO step with a Chrome timeline open: it must
+    raise ``hvd_tpu_collectives_total`` by ZERO_STEP_COLLECTIVES, its
+    reduce-scatter and all-gather submitted as ``zero.grads`` and
+    ``zero.updates`` (the reference's names, on the timeline)."""
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.metrics import instruments
+
+    path = os.path.join(tempfile.mkdtemp(prefix="hvd_zero_"), "tl.json")
+    before = dict(instruments.COLLECTIVES.samples())
+    hvd.start_timeline(path, mark_cycles=False)
+    try:
+        step(state, inputs, labels)
+    finally:
+        hvd.stop_timeline()
+    after = dict(instruments.COLLECTIVES.samples())
+    delta = {"|".join(k): v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    with open(path) as f:
+        timeline = f.read()
+    names = [n for n in ("zero.grads", "zero.updates")
+             if f'"{n}"' in timeline]
+    assert delta == ZERO_STEP_COLLECTIVES, delta
+    assert names == ["zero.grads", "zero.updates"], names
+    return dict(collectives=delta, names=names)
+
+
+# -- phase: analysis -----------------------------------------------------------
+
+
+def phase_analysis():
+    """The port's contract checker over this checkout: ``python -m
+    horovod_tpu_torch.analysis`` in a subprocess must exit 0 (every
+    finding allowlisted with a reason or marked inline).  Logs the
+    findings it printed, the raw findings and allowlist entries of its
+    summary line, and its seconds."""
+    import re
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.analysis"],
+                         cwd=HERE, capture_output=True, text=True,
+                         timeout=300)
+    seconds = time.perf_counter() - t0
+    assert res.returncode == 0, (res.returncode, res.stdout, res.stderr)
+    m = re.search(r"(\d+) raw finding\(s\), (\d+) allowlisted",
+                  res.stderr)
+    assert m, res.stderr
+    rec = dict(findings=len(res.stdout.splitlines()), raw=int(m.group(1)),
+               allowlisted=int(m.group(2)), seconds=seconds)
+    log("  analysis: " + json.dumps(rec))
     return rec
 
 
@@ -6197,10 +6259,10 @@ def phase_hier4(device="cuda", b=TRAIN_B, steps=HIER4_STEPS, reps=4,
     return rec
 
 
-PHASES = ("kernels", "serving", "tp", "oracle", "spec", "disagg",
-          "training", "overlap", "zero", "training_oracle", "remat",
-          "resnet", "resnet_oracle", "pipeline", "ring", "parallel",
-          "guard", "elastic", "observe", "hier")
+PHASES = ("analysis", "kernels", "serving", "tp", "oracle", "spec",
+          "disagg", "training", "overlap", "zero", "training_oracle",
+          "remat", "resnet", "resnet_oracle", "pipeline", "ring",
+          "parallel", "guard", "elastic", "observe", "hier")
 
 
 BN_ENTRIES = (("bn_stats", "stats", 77, ("mean", "var")),
@@ -6439,6 +6501,9 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
     kern = train_kern = bn_kern = serving = train = resnet = None
     train_oracle = remat = pipeline = b9 = ring = ring4 = None
+    if "analysis" in phases:
+        _phase("analysis")
+        phase_analysis()
     if "kernels" in phases:
         _phase("kernels")
         kern = phase_kernels()

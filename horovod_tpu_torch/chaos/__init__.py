@@ -5,8 +5,9 @@ same spec grammar, sites, actions, per-rank draw streams and
 ``HVD_TPU_CHAOS*`` variables, so a spec replays the same injection
 trace in either package.  The port has no native core yet, so
 :func:`configure_native_lib` raises and ``transport.*`` rules never
-fire; the crash bundle a ``kill`` writes in the JAX package (its flight
-recorder) is not ported.
+fire.  A ``kill`` writes the flight recorder's crash bundle
+(``trace/flight.py``, when ``HVD_TPU_TRACE_BUNDLE_DIR`` is set) before
+the process exits, as the JAX package's does.
 
 The subsystem that PROVES the recovery machinery works: named injection
 points throughout the framework evaluate a seed-driven plan and, when a
@@ -377,6 +378,15 @@ def point(site: str, payload: Any = None) -> Any:
             os.kill(os.getpid(), -fire.code)
             return payload
         get_logger().error("chaos: self-kill at %s", site)
+        try:
+            # the black box goes out BEFORE the lights: the bundle
+            # carries this process's final spans incl. the kill event
+            # (HVD_TPU_TRACE_BUNDLE_DIR opts in; never raises)
+            from ..trace import flight as _flight
+
+            _flight.maybe_dump("chaos_kill", extra={"site": site})
+        except Exception:
+            pass
         os._exit(fire.code)
     if action == "hang":
         get_logger().error("chaos: self-hang at %s", site)

@@ -49,6 +49,7 @@ import torch.distributed as dist
 from ..utils.logging import get_logger
 from .exceptions import NotInitializedError
 from .process_sets import ProcessSetRegistry
+from .retry import env_float
 
 
 class _State:
@@ -82,8 +83,25 @@ class _State:
 
 
 _state = _State()
-#: collectives that wait longer than this fail instead of hanging
+#: collectives that wait longer than this fail instead of hanging (and
+#: the rendezvous's deadline), unless ``HVD_TPU_BOOT_TIMEOUT`` is set
 _TIMEOUT_S = 600.0
+#: the launcher's variables (``runner/launch.py`` and the elastic
+#: rendezvous set them; a garbled value raises)
+ENV_NUM_PROCESSES = "HVD_TPU_NUM_PROCESSES"
+ENV_PROCESS_ID = "HVD_TPU_PROCESS_ID"
+ENV_LOCAL_RANK = "HVD_TPU_LOCAL_RANK"
+ENV_LOCAL_SIZE = "HVD_TPU_LOCAL_SIZE"
+
+
+def _timeout() -> datetime.timedelta:
+    """``init_process_group``'s timeout: ``HVD_TPU_BOOT_TIMEOUT`` seconds
+    when it is > 0, else :data:`_TIMEOUT_S`.  The JAX package hands the
+    variable to ``jax.distributed.initialize`` as the deadline to reach
+    the coordination service; ``torch.distributed`` has one timeout for
+    the rendezvous and for every collective of the group after it."""
+    boot = env_float("HVD_TPU_BOOT_TIMEOUT", 0.0)
+    return datetime.timedelta(seconds=boot if boot > 0 else _TIMEOUT_S)
 
 
 def _env(name: str, fallback: Optional[str] = None) -> Optional[int]:
@@ -124,17 +142,17 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
             ensure_assignment()
         torchrun = _env("WORLD_SIZE") is not None
         coordinator = os.environ.get("HVD_TPU_COORDINATOR")
-        launched = torchrun or _env("HVD_TPU_NUM_PROCESSES") is not None
+        launched = torchrun or _env(ENV_NUM_PROCESSES) is not None
         size = size if size is not None else (
-            _env("WORLD_SIZE", "HVD_TPU_NUM_PROCESSES") or 1)
+            _env("WORLD_SIZE", ENV_NUM_PROCESSES) or 1)
         rank = rank if rank is not None else (
-            _env("RANK", "HVD_TPU_PROCESS_ID") or 0)
+            _env("RANK", ENV_PROCESS_ID) or 0)
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside world of size {size}")
-        local_rank = _env("LOCAL_RANK", "HVD_TPU_LOCAL_RANK")
+        local_rank = _env("LOCAL_RANK", ENV_LOCAL_RANK)
         if local_rank is None:
             local_rank = 0 if launched else rank
-        local_size = _env("LOCAL_WORLD_SIZE", "HVD_TPU_LOCAL_SIZE") or size
+        local_size = _env("LOCAL_WORLD_SIZE", ENV_LOCAL_SIZE) or size
         if init_method is None and launched:
             init_method = ("tcp://" + coordinator
                            if coordinator and not torchrun else "env://")
@@ -146,7 +164,7 @@ def init(device: Optional[Union[str, torch.device]] = None, *,
             _open_timeline(config.timeline_filename,
                            config.timeline_mark_cycles, rank)
         backend = backend or ("gloo" if dev.type == "cpu" else "nccl")
-        timeout = datetime.timedelta(seconds=_TIMEOUT_S)
+        timeout = _timeout()
         try:
             if init_method is None and size == 1 and not launched:
                 _state.store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")

@@ -119,7 +119,7 @@ def _driver_addr() -> tuple:
 
 
 def _worker_id() -> int:
-    # the driver-assigned identity; garbage must crash
+    # contract-ok: env -- driver-assigned identity; garbage must crash
     return int(os.environ[ENV_WORKER_ID])
 
 

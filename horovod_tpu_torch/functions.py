@@ -5,19 +5,21 @@ horovod/torch/functions.py).  As in the reference's PyTorch flavour, the
 parameter and optimizer-state broadcasts work **in place** on the
 caller's tensors (the JAX package returns new pytrees because its arrays
 are immutable), fused into per-dtype buckets so a model's hundreds of
-tensors take a handful of collectives.  A dead peer raises
+tensors take a handful of collectives.  Every exchange goes through
+the public collectives (``ops/collective_ops.py``), so it books their
+counters, bytes and spans; a dead peer raises
 ``HorovodInternalError`` (``collective_ops.peer_failures``).
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Iterable, List, Mapping, Tuple, Union
 
 import torch
-import torch.distributed as dist
 
 from .common import basics
-from .ops.collective_ops import peer_failures
+from .ops import collective_ops
 from .ops.fusion import FusionPlan, fuse, fusion_threshold, unfuse
 
 
@@ -44,10 +46,8 @@ def _broadcast_inplace(tensors: List[torch.Tensor], root_rank: int) -> None:
         # the collective runs on the rank's device; host-side entries
         # (torch keeps an optimizer's step counts on the CPU) ride along
         plan = FusionPlan(tensors, fusion_threshold())
-        bufs = fuse([t.to(dev) for t in tensors], plan)
-        with peer_failures():
-            for buf in bufs:
-                dist.broadcast(buf, src=root_rank)
+        bufs = collective_ops.broadcast(
+            fuse([t.to(dev) for t in tensors], plan), root_rank)
         for t, new in zip(tensors, unfuse(bufs, plan)):
             t.copy_(new)
 
@@ -120,23 +120,45 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     return optimizer
 
 
+def _pickled(obj: Any) -> torch.Tensor:
+    """``obj`` pickled into a uint8 tensor on the rank's device."""
+    data = bytearray(pickle.dumps(obj))
+    return torch.frombuffer(data, dtype=torch.uint8).to(basics.device())
+
+
+def _unpickled(buf: torch.Tensor) -> Any:
+    return pickle.loads(buf.cpu().numpy().tobytes())
+
+
 def broadcast_object(obj: Any, root_rank: int = 0, name=None) -> Any:
     """``root_rank``'s picklable object on every rank (reference:
-    broadcast_object)."""
+    broadcast_object): the root pickles it, and its size, then its
+    bytes, go out through two broadcasts."""
     if basics.size() == 1:
         return obj
-    box = [obj]
-    with peer_failures():
-        dist.broadcast_object_list(box, src=root_rank)
-    return box[0]
+    dev = basics.device()
+    payload = _pickled(obj) if basics.rank() == root_rank else None
+    size = torch.tensor([0 if payload is None else payload.numel()],
+                        dtype=torch.int64, device=dev)
+    size = int(collective_ops.broadcast(size, root_rank, name=name)[0])
+    if payload is None:
+        payload = torch.zeros(size, dtype=torch.uint8, device=dev)
+    return _unpickled(collective_ops.broadcast(payload, root_rank,
+                                               name=name))
 
 
 def allgather_object(obj: Any, name=None) -> list:
     """Every rank's picklable object, in rank order (reference:
-    allgather_object)."""
+    allgather_object): the sizes go first, then every rank's bytes,
+    padded to the longest."""
     if basics.size() == 1:
         return [obj]
-    out = [None] * basics.size()
-    with peer_failures():
-        dist.all_gather_object(out, obj)
-    return out
+    payload = _pickled(obj)
+    sizes = collective_ops.allgather(
+        torch.tensor([payload.numel()], dtype=torch.int64,
+                     device=payload.device), name=name).tolist()
+    padded = torch.zeros((1, max(sizes)), dtype=torch.uint8,
+                         device=payload.device)
+    padded[0, :payload.numel()] = payload
+    rows = collective_ops.allgather(padded, name=name)
+    return [_unpickled(row[:n]) for row, n in zip(rows, sizes)]

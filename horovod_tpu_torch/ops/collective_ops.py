@@ -259,11 +259,13 @@ def _submit(name: Optional[str], opname: str, tree: Any,
             start: Callable[[], "Handle"]) -> "Handle":
     """Submit one collective: ``start()`` launches it and returns its
     :class:`Handle`, inside an ``ENQUEUE`` span, with a ``COMM`` span
-    open from here until the handle's result is ready."""
+    open from here until the handle's result is ready.  A dead peer
+    met at launch raises :class:`HorovodInternalError`, as one met at
+    ``wait`` does."""
     label = name or opname
     span = _CommSpan(label, opname)
     try:
-        with _profiler.span(label, "ENQUEUE"):
+        with _profiler.span(label, "ENQUEUE"), peer_failures():
             handle = start()
     except BaseException:
         span.end()
@@ -914,11 +916,10 @@ def barrier(process_set=None) -> None:
     group, _, _ = _scope(process_set)
 
     def start():
-        with peer_failures():
-            if st.backend == "nccl":
-                dist.barrier(group=group, device_ids=[st.device.index])
-            else:
-                dist.barrier(group=group)
+        if st.backend == "nccl":
+            dist.barrier(group=group, device_ids=[st.device.index])
+        else:
+            dist.barrier(group=group)
         return _ready(None)
 
     _submit(None, "barrier", None, start).wait()

@@ -19,18 +19,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.env_parser import _get_int_validated
-
-
-#: HOROVOD_FUSION_THRESHOLD's default (64 MiB)
-DEFAULT_THRESHOLD = 64 * 1024 * 1024
+from ..utils.env_parser import Config
 
 
 def fusion_threshold() -> int:
     """Bucket byte threshold: ``HVD_TPU_FUSION_THRESHOLD`` (or the
-    reference's ``HOROVOD_FUSION_THRESHOLD``); 0 disables fusion, and a
+    reference's ``HOROVOD_FUSION_THRESHOLD``, default 64 MiB), read
+    anew on each call through ``Config``; 0 disables fusion, and a
     garbled or negative value raises."""
-    return _get_int_validated("FUSION_THRESHOLD", DEFAULT_THRESHOLD)
+    return Config.from_env().fusion_threshold_bytes
 
 
 def _dtype(d: Any) -> torch.dtype:

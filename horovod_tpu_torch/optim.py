@@ -553,15 +553,18 @@ class ZeroDistributedOptimizer(_Wrapper):
     parameters; the wrapper rebuilds it, with each param group's
     settings, over this rank's flat shards (one 1-D tensor per param
     group and dtype, :class:`ZeroPlan`).  ``step()`` reduce-scatters the
-    flattened gradients (``grouped_reducescatter``), steps the shard
-    optimizer, and gathers the updated shards back into the parameters
-    (``all_gather_into_tensor``); the parameters stay replicated.
+    flattened gradients (``zero.grads``), steps the shard optimizer, and
+    all-gathers the updated shards back into the parameters
+    (``zero.updates``); the parameters stay replicated.  Each collective
+    goes through the instrumented submission, under the reference's
+    name: its counter, bytes, ``COMM`` span and timeline event.
 
     ``op``: Average or Sum.  ``backward_passes_per_step=k``: the caller
     runs k backward passes before each ``step()``, which reduces their
     mean.  ``min_total_bytes`` (default ``HVD_TPU_ZERO_MIN_BYTES``, 0):
     below this many parameter bytes in all, the state stays replicated
-    and the gradients take one allreduce.  Unlike the JAX package's, the
+    and the padded gradient buffers take one allreduce (``zero.grads``;
+    none at world 1).  Unlike the JAX package's, the
     flat path runs at world 1 as well (its state is then the whole
     model's), so one card drives it.
 
@@ -709,9 +712,24 @@ class ZeroDistributedOptimizer(_Wrapper):
             dtype=buf.dtype)
         return m["ici_bytes"], m["dcn_bytes"]
 
+    def _allreduce(self, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The unsharded exchange: the padded gradient buffers reduced
+        with ``op`` (``zero.grads``, the replicated fallback's one
+        allreduce)."""
+        comp = self.dcn_compression
+        if comp is not None and comp.error_feedback:
+            comp = None  # the residual lives in the sharded state only
+        return collective_ops._submit(
+            "zero.grads", "allreduce", bufs,
+            lambda: collective_ops._allreduce_async(
+                bufs, self.op, 1.0, 1.0, self.process_set, ordered=True,
+                hierarchical=self._hierarchical,
+                dcn_compression=comp)).wait()
+
     def _gather(self, shards: List[torch.nn.Parameter]) -> List[torch.Tensor]:
-        """The updated shards, all-gathered into full flat buffers (over
-        the local group on the two-level exchange)."""
+        """The updated shards, all-gathered into full flat buffers
+        (``zero.updates``; over the local group on the two-level
+        exchange, ``zero.updates.local``)."""
         if self.tiers is None:
             group, n, _ = collective_ops._scope(self.process_set)
         else:
@@ -723,12 +741,14 @@ class ZeroDistributedOptimizer(_Wrapper):
                 if self.tiers is not None:
                     collective_ops._account_tier_bytes(
                         self._tier_bytes(buf)[0] // 2, 0)
+                else:
+                    collective_ops._account_flat(
+                        buf.numel() * buf.element_size(), n, 1.0)
                 collective_ops._all_gather_flat(buf, s.detach(), group=group)
             return collective_ops._ready(full)
 
-        if self.tiers is None:
-            return gather().wait()
-        return collective_ops._submit("zero.updates.local", "allgather",
+        name = "zero.updates" if self.tiers is None else "zero.updates.local"
+        return collective_ops._submit(name, "allgather",
                                       [s.detach() for s in shards],
                                       gather).wait()
 
@@ -740,14 +760,12 @@ class ZeroDistributedOptimizer(_Wrapper):
         integrity guard's agreement object."""
         if not self.sharded:
             if reduce:
-                for ps in self._groups:
-                    comp = self.dcn_compression
-                    for p, g in zip(ps, allreduce_gradients(
-                            self._grads(ps), self.op,
-                            process_set=self.process_set,
-                            hierarchical=self._hierarchical,
-                            dcn_compression=None if comp is None
-                            or comp.error_feedback else comp)):
+                for plan, ps in zip(self.plans, self._groups):
+                    grads = self._grads(ps)
+                    if self._world > 1:  # at world 1 the mean is the value
+                        grads = plan.unflatten(
+                            self._allreduce(plan.flatten(grads)))
+                    for p, g in zip(ps, grads):
                         p.grad = g
             old = (None if updates is None else
                    [p.detach().clone() for p in self._flat_params])
@@ -768,7 +786,7 @@ class ZeroDistributedOptimizer(_Wrapper):
                 else:
                     g_shards = collective_ops.grouped_reducescatter(
                         plan.flatten(self._grads(ps)), op=self.op,
-                        process_set=self.process_set)
+                        name="zero.grads", process_set=self.process_set)
             else:
                 g_shards = plan.shards([p.grad for p in ps], me)
             with torch.no_grad():

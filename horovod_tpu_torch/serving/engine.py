@@ -215,14 +215,26 @@ class ServeConfig:
     def from_env(cls, **overrides) -> "ServeConfig":
         base = cls(**overrides)
         fields = dataclasses.asdict(base)
-        ints = {"block_size": "BLOCK_SIZE", "num_blocks": "NUM_BLOCKS",
-                "token_budget": "TOKEN_BUDGET", "watermark": "WATERMARK",
-                "prefill_chunk": "PREFILL_CHUNK", "shards": "SHARDS",
-                "spec_k": "SPEC_K"}
-        for field, env in ints.items():
-            if field not in overrides:
-                fields[field] = env_int(f"HVD_TPU_SERVE_{env}",
-                                        getattr(base, field))
+        # each knob spelled out, so the env pass sees its read
+        if "block_size" not in overrides:
+            fields["block_size"] = env_int("HVD_TPU_SERVE_BLOCK_SIZE",
+                                           base.block_size)
+        if "num_blocks" not in overrides:
+            fields["num_blocks"] = env_int("HVD_TPU_SERVE_NUM_BLOCKS",
+                                           base.num_blocks)
+        if "token_budget" not in overrides:
+            fields["token_budget"] = env_int("HVD_TPU_SERVE_TOKEN_BUDGET",
+                                             base.token_budget)
+        if "watermark" not in overrides:
+            fields["watermark"] = env_int("HVD_TPU_SERVE_WATERMARK",
+                                          base.watermark)
+        if "prefill_chunk" not in overrides:
+            fields["prefill_chunk"] = env_int("HVD_TPU_SERVE_PREFILL_CHUNK",
+                                              base.prefill_chunk)
+        if "shards" not in overrides:
+            fields["shards"] = env_int("HVD_TPU_SERVE_SHARDS", base.shards)
+        if "spec_k" not in overrides:
+            fields["spec_k"] = env_int("HVD_TPU_SERVE_SPEC_K", base.spec_k)
         if "prefill_tiers" not in overrides:
             fields["prefill_tiers"] = _env_tiers(
                 _PREFILL_TIERS_ENV, base.prefill_tiers)
@@ -518,6 +530,7 @@ class ServingEngine:
             return
         mine = torch.from_numpy(np.ascontiguousarray(out).astype(np.int64))
         first = mine.to(self.device)
+        # contract-ok: collectives -- every rank of the set ends each sharded step here (the JAX engine's step is one SPMD program, with no host collective to route)
         dist.broadcast(first, self.mesh.ranks[0], group=self.mesh.group)
         if not torch.equal(first.cpu(), mine):
             raise RuntimeError(
@@ -1118,6 +1131,7 @@ class ServingEngine:
                 # an unsharded engine writes
                 sel = sel.contiguous()
                 parts = [torch.empty_like(sel) for _ in range(self.shards)]
+                # contract-ok: collectives -- export/import run on every rank of the set (the JAX engine gathers the head slices inside its one SPMD program)
                 dist.all_gather(parts, sel, group=self.mesh.group)
                 sel = torch.cat(parts, dim=-2)
             # (2, n, L, bs, H, D); stack and index_select copied, so no
@@ -1374,10 +1388,12 @@ class ServingEngine:
         else:
             header = [0.0] * 4
         head = torch.tensor(header, dtype=torch.float64, device=self.device)
+        # contract-ok: collectives -- every rank of the set opens each sharded step here (the JAX engine is one process, with no intake to share)
         dist.broadcast(head, src, group=group)
         n, done, next_id, now = head.tolist()
         reqs = [self._inbox] if self.lead else [None]
-        if n:
+        if n:  # n is the broadcast header's, the same on every rank
+            # contract-ok: collectives -- every rank of the set takes this branch together, on the header it just received
             dist.broadcast_object_list(reqs, src, group=group,
                                        device=self.device)
         self._inbox = []

@@ -32,19 +32,10 @@ _configured = False
 _context = {"rank": "-", "host": socket.gethostname(), "step": "-"}
 
 
-def _get(name: str, default: Optional[str] = None) -> Optional[str]:
-    """``HVD_TPU_<name>``, falling back to ``HOROVOD_<name>``."""
-    v = os.environ.get(f"HVD_TPU_{name}")
-    if v is None:
-        v = os.environ.get(f"HOROVOD_{name}")
-    return v if v is not None else default
-
-
-def _get_bool(name: str, default: bool) -> bool:
-    v = _get(name)
-    if v is None:
-        return default
-    return v.strip().lower() in ("1", "true", "yes", "on")
+def _flag(value: Optional[str]) -> bool:
+    """``utils/env_parser.py``'s boolean grammar."""
+    return value is not None and \
+        value.strip().lower() in ("1", "true", "yes", "on")
 
 
 def set_log_context(rank=None, host=None, step=None) -> None:
@@ -84,12 +75,20 @@ class _JsonFormatter(logging.Formatter):
 def get_logger() -> logging.Logger:
     global _configured
     if not _configured:
-        level_name = (_get("LOG_LEVEL", "warning") or "warning").lower()
+        # each HVD_TPU_<NAME> falls back to HOROVOD_<NAME>, spelled out
+        # so that the env pass (python -m horovod_tpu_torch.analysis)
+        # sees the reads
+        level_name = (os.environ.get(
+            "HVD_TPU_LOG_LEVEL", os.environ.get("HOROVOD_LOG_LEVEL"))
+            or "warning").lower()
         handler = logging.StreamHandler(sys.stderr)
-        if _get_bool("LOG_JSON", False):
+        if _flag(os.environ.get("HVD_TPU_LOG_JSON",
+                                os.environ.get("HOROVOD_LOG_JSON"))):
             handler.setFormatter(_JsonFormatter())
         else:
-            hide_time = _get_bool("LOG_HIDE_TIME", False)
+            hide_time = _flag(os.environ.get(
+                "HVD_TPU_LOG_HIDE_TIME",
+                os.environ.get("HOROVOD_LOG_HIDE_TIME")))
             fmt = "[%(levelname)s] hvd_tpu_torch: %(message)s" if hide_time \
                 else "%(asctime)s [%(levelname)s] hvd_tpu_torch: %(message)s"
             handler.setFormatter(logging.Formatter(fmt))

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, and no silent CPU fallback.
 
 * No module of ``horovod_tpu_torch/`` and not ``chip_smoke.py`` imports
-  jax, flax, optax or anything of ``horovod_tpu`` (AST scan).
+  jax, flax, optax or anything of ``horovod_tpu`` (AST scan); the
+  contract checker (``horovod_tpu_torch.analysis``) imports the standard
+  library only, and runs with torch and the port's runtime blocked.
 * The port imports and serves with those modules blocked outright.
 * Its entry points, given no device on a machine without a card, raise
   instead of quietly running on the CPU.
@@ -225,6 +227,51 @@ def test_port_imports_and_serves_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_analysis_imports_only_the_standard_library():
+    """``horovod_tpu_torch.analysis`` imports nothing but the standard
+    library and its own modules: no jax or ``horovod_tpu``, no torch,
+    nothing of the port's runtime (AST scan)."""
+    files = sorted((PKG / "analysis").glob("*.py"))
+    assert len(files) == 9
+    stdlib = set(sys.stdlib_module_names) | {"__future__"}
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert node.level == 1, f"{f.name}: from {'.' * node.level}"
+            elif isinstance(node, ast.ImportFrom):
+                assert node.module.split(".")[0] in stdlib, \
+                    f"{f.name}: {node.module}"
+            elif isinstance(node, ast.Import):
+                for alias in node.names:
+                    assert alias.name.split(".")[0] in stdlib, \
+                        f"{f.name}: {alias.name}"
+
+
+def test_analysis_runs_with_torch_and_the_port_blocked():
+    """The passes run, clean, with torch, jax and ``horovod_tpu``
+    blocked and the port's package never executed (a stub parent, as
+    ``tools/check.py`` loads the JAX package's checker)."""
+    code = (
+        "import sys, types\n"
+        f"for m in {BANNED + ('torch',)!r}: sys.modules[m] = None\n"
+        "stub = types.ModuleType('horovod_tpu_torch')\n"
+        f"stub.__path__ = [{str(PKG)!r}]\n"
+        "sys.modules['horovod_tpu_torch'] = stub\n"
+        "from horovod_tpu_torch import analysis\n"
+        f"assert analysis.run_all({str(ROOT)!r}) == []\n"
+        f"rc = analysis.main(['--root', {str(ROOT)!r}, '-q'])\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "    if m.startswith('horovod_tpu_torch.'))\n"
+        "assert all(m.startswith('horovod_tpu_torch.analysis')\n"
+        "    for m in loaded), loaded\n"
+        "print('rc', rc)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "rc 0"
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
