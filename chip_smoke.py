@@ -329,9 +329,25 @@ if any fails:
    one; a dyadic allreduce at gpt_small's parameter shapes bit-equal
    routed and flat, the tier counters (fp32 and bf16 wire) equal to
    the model, and the bytes of the calls the primitives recorded equal
-   to the model but on the local tier, where gloo's stand-in for the
-   reduce-scatter (an all-reduce) moves them twice.  Its times stage
-   through the host and measure nothing.
+   to the model (gloo's stand-in for the reduce-scatter is an
+   all-to-all).  Its times stage through the host and measure nothing.
+21. programs: the program-contract pass (``horovod_tpu_torch.analysis
+   .programs.verify``) on ONE card, its ranks sharing it over gloo as
+   in tp and hier: the training leg (world 2; a 2-layer flash
+   Transformer in fp32, so the simt training kernels launch) —
+   ``guard=False`` and ``HVD_TPU_GUARD=0`` issue the same collectives,
+   ``guard=True`` and a guarded ZeRO step add none, tracing on and off
+   issue the same, the overlapped step interleaves; the hierarchical
+   leg (world 4, two slices of two) — the two-level allreduce's issued
+   per-tier bytes equal the model's; the serving leg (world 4) — every
+   decode, mixed and verify step of engines at shards 1 and 2 and a
+   speculative one keeps its collectives inside a slice and issues the
+   modeled all-reduce bytes, and a randomized load of 512 requests
+   dispatches only warmed step keys.  One line: the legs, the checks
+   run, the findings (any fails the run), the flash launches and the
+   seconds.  The TensorFlow and Keras adapters are not driven here:
+   this machine has neither; their data plane is the collectives that
+   training, zero and hier drive.
 
 Each main path (serving, tp, spec, disagg, training, overlap, zero,
 remat, resnet, pipeline, ring, parallel, ring4, tp4, guard, elastic,
@@ -2855,6 +2871,53 @@ def phase_analysis():
     return rec
 
 
+#: the checks each leg of the program pass runs at its defaults: training
+#: 5 (guard off, guard on, trace, overlap, ZeRO guard); hierarchical 2 (two
+#: slices, per-tier bytes); serving 46 (two slices, then per engine the
+#: decode and mixed steps' DCN exclusion and bytes at every tier, the
+#: speculative steps' exclusion, the menu and the book)
+PROGRAMS_CHECKS = {"training": 5, "hierarchical": 2, "serving": 46}
+
+
+def phase_programs(device="cuda"):
+    """The program-contract pass's legs (module docstring, phase
+    programs) through ``programs.verify``: its ranks run in processes of
+    their own, every one on the card (``cuda:0``, over gloo) or the CPU.
+    Logs the legs, the checks each ran, the findings, the training
+    leg's flash launches (summed over its ranks) and the seconds; any
+    finding fails the phase, and so does a leg that ran other than its
+    PROGRAMS_CHECKS."""
+    from horovod_tpu_torch.analysis import programs
+
+    if device == "cuda":
+        import torch
+
+        from horovod_tpu_torch.ops import _build
+
+        _build.build_all()
+        gc.collect()
+        torch.cuda.empty_cache()
+    report = []
+    t0 = time.perf_counter()
+    findings = programs.verify(HERE, device="cpu" if device == "cpu"
+                               else "cuda:0", report=report)
+    rec = dict(legs=[r["leg"] for r in report],
+               checks={r["leg"]: r["checks"] for r in report},
+               findings=len(findings),
+               seconds={r["leg"]: r["seconds"] for r in report},
+               launches={r["leg"]: r["launches"] for r in report
+                         if r["launches"]},
+               total_seconds=time.perf_counter() - t0)
+    log("  programs: " + json.dumps(rec))
+    assert not findings, "\n".join(f.render() for f in findings)
+    assert rec["legs"] == ["training", "hierarchical", "serving"], rec
+    assert rec["checks"] == PROGRAMS_CHECKS, rec
+    if device == "cuda":
+        assert all(n > 0 for n in rec["launches"]["training"].values()), \
+            rec["launches"]
+    return rec
+
+
 # -- phase: remat --------------------------------------------------------------
 
 #: the remat phase's policies: each named one for every block, then the
@@ -3456,14 +3519,23 @@ def phase_resnet():
     return rec
 
 
+#: the host pause between the profiler window's opening and the first
+#: traced launch (outside the window's wall clock)
+PROFILE_LEAD_S = 0.05
+
+
 def profile_resnet(step, state, images, labels):
     """Device busy share, device time and kernels by kernel class
     (convolutions, the fused-norm kernels, other elementwise, SGD) over
     PROFILE_STEPS more steps under torch.profiler, after one warm-up
     step traced and discarded (the profiler's documented warm-up: two
     default runs on an H100 saw the window two fused-norm kernels short
-    while the wrappers counted every launch); the fused-norm kernels must
-    be 5 a site, each kind's count in the record."""
+    while the wrappers counted every launch) and a host pause of
+    PROFILE_LEAD_S once the window is open (the capture keeps only
+    device work stamped inside its window, and a default run after the
+    warm-up still saw the first step's first stats and apply kernels
+    missing); the fused-norm kernels must be 5 a site, each kind's count
+    in the record."""
     import collections
 
     import torch
@@ -3477,6 +3549,7 @@ def profile_resnet(step, state, images, labels):
         state, loss = step(state, images, labels)
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
         for i in range(PROFILE_STEPS):
             state, loss = step(state, images, labels)
@@ -6001,10 +6074,10 @@ def hier_allreduce(shapes, device, timed_reps=0):
     routed call's measured per-tier bytes (the ``torch.distributed``
     calls its primitives recorded as they issued them) and the tier
     counters' increase against the model, bucket by bucket of the
-    fusion plan: the counters book the model, the calls move its bytes
-    exactly over NCCL, and over gloo the local hop's bytes twice over
-    (gloo's stand-in for the reduce-scatter is an all-reduce of the
-    whole bucket); the same with a bf16 wire.  With ``timed_reps`` the four ways to reduce them are timed in
+    fusion plan: the counters book the model, and the calls move its
+    bytes exactly, over NCCL and over gloo (whose stand-in for the
+    reduce-scatter is an all-to-all of the bucket); the same with a bf16
+    wire.  With ``timed_reps`` the four ways to reduce them are timed in
     turns (host clock, synchronised, barrier first): NCCL's own
     allreduce of the fused buffers, the flat rank-ordered sum, the
     two-level sum and the two-level sum with a bf16 wire."""
@@ -6029,10 +6102,6 @@ def hier_allreduce(shapes, device, timed_reps=0):
     bf16 = hvd.DcnCompression("bfloat16")
     rec = dict(grad_bytes=4 * sum(sizes), buckets=len(sizes),
                n_dcn=t.n_dcn, n_ici=t.n_ici, backend=dist.get_backend())
-    # gloo's reduce-scatter over two ranks is an all-reduce of the bucket
-    staged = rec["backend"] == "gloo" and t.n_ici == 2
-    extra_ici = sum(-(-n // 2) * 2 * 4 // 2 for n in sizes) if staged \
-        else 0
 
     def routed(wire):
         ici, dcn = I.COLLECTIVE_ICI_BYTES.get(), I.COLLECTIVE_DCN_BYTES.get()
@@ -6050,7 +6119,7 @@ def hier_allreduce(shapes, device, timed_reps=0):
         counted = [I.COLLECTIVE_ICI_BYTES.get() - ici,
                    I.COLLECTIVE_DCN_BYTES.get() - dcn]
         assert counted == want, (counted, want)
-        assert got == [want[0] + extra_ici, want[1]], (got, want, extra_ici)
+        assert got == want, (got, want)
         return out, dict(modeled=want, measured=got, counters=counted,
                          measured_minus_modeled=[got[0] - want[0],
                                                  got[1] - want[1]],
@@ -6259,7 +6328,7 @@ def phase_hier4(device="cuda", b=TRAIN_B, steps=HIER4_STEPS, reps=4,
     return rec
 
 
-PHASES = ("analysis", "kernels", "serving", "tp", "oracle", "spec",
+PHASES = ("analysis", "programs", "kernels", "serving", "tp", "oracle", "spec",
           "disagg", "training", "overlap", "zero", "training_oracle",
           "remat", "resnet", "resnet_oracle", "pipeline", "ring",
           "parallel", "guard", "elastic", "observe", "hier")
@@ -6504,6 +6573,9 @@ def main(argv=None) -> int:
     if "analysis" in phases:
         _phase("analysis")
         phase_analysis()
+    if "programs" in phases:
+        _phase("programs")
+        phase_programs()
     if "kernels" in phases:
         _phase("kernels")
         kern = phase_kernels()

@@ -38,7 +38,12 @@ bridge, ``metrics.cluster_snapshot`` and the overlap and serving step
 views, with the benchmark entry ``python -m horovod_tpu_torch.bench``,
 and the two-level collectives (``HOROVOD_HIERARCHICAL_ALLREDUCE``:
 ``common.topology``, ``ops.hierarchical``, ``DcnCompression``, the
-hierarchical ZeRO exchange and the per-tier byte model).
+hierarchical ZeRO exchange and the per-tier byte model), the contract
+checker (``python -m horovod_tpu_torch.analysis``, with its gated
+``programs`` pass), and the TensorFlow 2 and Keras 3 adapters
+(``horovod_tpu_torch.tensorflow``, ``horovod_tpu_torch.keras``), which
+need TensorFlow and are imported by name only: importing this package
+imports neither TensorFlow nor Keras.
 Entry points run on the card unless
 the caller passes ``device="cpu"``; without a card and without that
 explicit choice they raise.

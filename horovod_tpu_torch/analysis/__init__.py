@@ -1,6 +1,7 @@
 """Cross-layer contract checker (static analysis) for horovod_tpu_torch.
 
-Port of ``horovod_tpu/analysis/``'s six source passes.  The package
+Port of ``horovod_tpu/analysis/``: six source passes and the gated
+program pass.  The package
 names its knobs, metrics, chaos sites and trace sites in code, in
 catalogues and in ``docs/``; drift between them is silent (an
 uncatalogued chaos site is a rule that never fires, an undocumented
@@ -18,21 +19,29 @@ trace       span/event sites == trace SITES == docs/TRACING.md
 locks       lock-order acyclic; no mixed guarded/unguarded writes
 collectives no rank-gated collectives; raw torch.distributed
             collectives only in ops//parallel/
+programs    observers add no collective, modeled == issued bytes,
+            no off-menu serving step (torch; HVD_TPU_VERIFY_PROGRAMS=1)
 =========== =====================================================
 
-The JAX package's ``c-api`` and ``programs`` passes wait for the port's
-native core and its lowered-program checks (:data:`NOT_PORTED`); asking
-for either is a usage error.  Findings the port accepts are listed,
-each with its reason, in ``allowlist.txt`` beside this file.
+The JAX package's ``c-api`` pass waits for the port's native core
+(:data:`NOT_PORTED`); asking for it is a usage error.  ``programs``
+runs the package's steps in processes of their own and reports nothing
+unless ``HVD_TPU_VERIFY_PROGRAMS=1`` is set (:mod:`.programs`).
+Findings the port accepts are listed, each with its reason, in
+``allowlist.txt`` beside this file.
 
 Run it::
 
     python -m horovod_tpu_torch.analysis            # every pass
     python -m horovod_tpu_torch.analysis env chaos  # a subset
+    HVD_TPU_VERIFY_PROGRAMS=1 python -m horovod_tpu_torch.analysis programs
+    HVD_TPU_VERIFY_PROGRAMS=1 python -m horovod_tpu_torch.analysis \
+        programs --device cpu                       # no card: the CPU
 
 Exit status: 0 clean, 1 findings, 2 usage error.  The ``-m`` spelling
 imports the ``horovod_tpu_torch`` package (and so torch) first; the
-passes themselves import nothing of it.
+source passes import nothing of it, and ``programs`` imports it only
+once its gate is set.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 from . import (chaos_sites, collectives, envvars, locks, metrics_catalogue,
-               trace_sites)
+               programs, trace_sites)
 from ._common import JAX, PORT, Finding, Layout, Suppressions
 
 __all__ = ["Finding", "JAX", "PORT", "Layout", "NOT_PORTED", "PASSES",
@@ -57,14 +66,13 @@ PASSES: Dict[str, Callable[..., List[Finding]]] = {
     "trace": trace_sites.run,
     "locks": locks.run,
     "collectives": collectives.run,
+    "programs": programs.run,
 }
 
 #: the JAX package's passes the port does not run yet, and why
 NOT_PORTED = {
     "c-api": "ROADMAP A13b: the port has no native core, so no C API "
              "or ctypes bindings to hold against each other",
-    "programs": "ROADMAP A13c: the lowered-program invariants, checked "
-                "on the calls as issued",
 }
 
 
@@ -79,16 +87,22 @@ def _check_names(checks: Sequence[str]) -> None:
 
 def run_all(root: str, checks: Optional[Sequence[str]] = None,
             suppress: bool = True, layout: Layout = PORT,
-            stats: Optional[dict] = None) -> List[Finding]:
+            stats: Optional[dict] = None,
+            device: str = "cuda:0") -> List[Finding]:
     """Run the selected passes (default: all) against ``root`` and
     return the surviving findings, allowlist and markers applied.
     ``stats``, when given, receives ``raw`` (the findings before
-    suppression) and ``allowlisted`` (the allowlist's entries)."""
+    suppression) and ``allowlisted`` (the allowlist's entries).
+    ``device`` is where the gated ``programs`` pass runs its steps
+    (``"cuda:0"`` or ``"cpu"``); the source passes run none."""
     selected = list(checks) if checks else list(PASSES)
     _check_names(selected)
     findings: List[Finding] = []
     for name in selected:
-        findings.extend(PASSES[name](root, layout))
+        if name == "programs":
+            findings.extend(programs.run(root, layout, device=device))
+        else:
+            findings.extend(PASSES[name](root, layout))
     if not suppress:
         return findings
     sup = Suppressions(root, layout)
@@ -110,6 +124,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help=f"passes to run (default all): {list(PASSES)}")
     parser.add_argument("--root", default=None,
                         help="repo root (default: derived from this file)")
+    parser.add_argument("--device", default="cuda:0",
+                        choices=("cuda:0", "cpu"),
+                        help="where the gated programs pass runs its "
+                             "steps (default cuda:0; no card there is a "
+                             "finding)")
     parser.add_argument("-q", "--quiet", action="store_true",
                         help="findings only, no summary line")
     args = parser.parse_args(argv)
@@ -119,7 +138,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     t0 = time.perf_counter()
     stats: dict = {}
     try:
-        findings = run_all(root, args.checks or None, stats=stats)
+        findings = run_all(root, args.checks or None, stats=stats,
+                           device=args.device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -158,6 +158,13 @@ class ProcessSetRegistry:
                     return ps
         return self.add(ProcessSet(want))
 
+    def get(self, set_id: int) -> ProcessSet:
+        """The registered set of id ``set_id``."""
+        with self._lock:
+            if set_id not in self._table:
+                raise ProcessSetError(f"no process set with id {set_id}")
+            return self._table[set_id]
+
     def ids(self) -> List[int]:
         with self._lock:
             return sorted(self._table)

@@ -130,35 +130,45 @@ def _unpickled(buf: torch.Tensor) -> Any:
     return pickle.loads(buf.cpu().numpy().tobytes())
 
 
-def broadcast_object(obj: Any, root_rank: int = 0, name=None) -> Any:
-    """``root_rank``'s picklable object on every rank (reference:
-    broadcast_object): the root pickles it, and its size, then its
-    bytes, go out through two broadcasts."""
-    if basics.size() == 1:
+def _set_size(process_set) -> int:
+    return basics._require_init().process_set_registry.resolve(
+        process_set).size()
+
+
+def broadcast_object(obj: Any, root_rank: int = 0, name=None,
+                     process_set=None) -> Any:
+    """``root_rank``'s picklable object on every rank of the set
+    (reference: broadcast_object): the root pickles it, and its size,
+    then its bytes, go out through two broadcasts."""
+    if _set_size(process_set) == 1:
         return obj
     dev = basics.device()
     payload = _pickled(obj) if basics.rank() == root_rank else None
     size = torch.tensor([0 if payload is None else payload.numel()],
                         dtype=torch.int64, device=dev)
-    size = int(collective_ops.broadcast(size, root_rank, name=name)[0])
+    size = int(collective_ops.broadcast(size, root_rank, name=name,
+                                        process_set=process_set)[0])
     if payload is None:
         payload = torch.zeros(size, dtype=torch.uint8, device=dev)
     return _unpickled(collective_ops.broadcast(payload, root_rank,
-                                               name=name))
+                                               name=name,
+                                               process_set=process_set))
 
 
-def allgather_object(obj: Any, name=None) -> list:
-    """Every rank's picklable object, in rank order (reference:
+def allgather_object(obj: Any, name=None, process_set=None) -> list:
+    """Every set rank's picklable object, in rank order (reference:
     allgather_object): the sizes go first, then every rank's bytes,
     padded to the longest."""
-    if basics.size() == 1:
+    if _set_size(process_set) == 1:
         return [obj]
     payload = _pickled(obj)
     sizes = collective_ops.allgather(
         torch.tensor([payload.numel()], dtype=torch.int64,
-                     device=payload.device), name=name).tolist()
+                     device=payload.device), name=name,
+        process_set=process_set).tolist()
     padded = torch.zeros((1, max(sizes)), dtype=torch.uint8,
                          device=payload.device)
     padded[0, :payload.numel()] = payload
-    rows = collective_ops.allgather(padded, name=name)
+    rows = collective_ops.allgather(padded, name=name,
+                                    process_set=process_set)
     return [_unpickled(row[:n]) for row, n in zip(rows, sizes)]

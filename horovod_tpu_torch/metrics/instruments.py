@@ -495,12 +495,21 @@ CHAOS_INJECTIONS = counter(
 )
 
 #: Training step wall time, by adapter (the callbacks' TrainLoop books
-#: it under "torch").
+#: it under "torch", the keras adapter's TelemetryCallback under
+#: "keras").
 STEP_DURATION = histogram(
     "hvd_tpu_step_duration_seconds",
     "Training step wall time, by adapter",
     ["adapter"],
     buckets=DEFAULT_LATENCY_BUCKETS + (25.0, 60.0),
+)
+
+#: Last epoch-end value of each Keras logged metric (the keras adapter's
+#: TelemetryCallback sets it).
+KERAS_EPOCH_METRIC = gauge(
+    "hvd_tpu_keras_epoch_metric",
+    "Last epoch-end value of each Keras logged metric",
+    ["metric"],
 )
 
 # -- retries (common/retry.py) ------------------------------------------------

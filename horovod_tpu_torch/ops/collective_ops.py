@@ -487,20 +487,25 @@ def _reduce_scatter_start(buf: torch.Tensor, group, n: int, me: int
     """Start this rank's 1/n slice of the sum of a 1-D buffer whose
     length divides by ``n`` (the slices in rank order): ``(works,
     result)``, where ``result()`` is the slice once the works are
-    done."""
+    done.  The rank-ordered sum, and gloo's stand-in for the
+    reduce-scatter it lacks, is an all-to-all of the slices summed in
+    rank order: the reduce-scatter's bytes, and over two ranks, or in
+    integers, the library sum's bits.  NCCL reduce-scatters otherwise;
+    a bool buffer over gloo is all-reduced whole and sliced."""
     if n == 1:
         out = buf.clone()
         return [], lambda: out
-    if _rank_ordered(buf.dtype, n):
+    nccl = basics._require_init().backend == "nccl"
+    if _rank_ordered(buf.dtype, n) or (not nccl and buf.dtype != torch.bool):
         recv = torch.empty_like(buf)
         work = _all_to_all_flat(recv, buf, group=group, async_op=True)
         return [work], lambda: _sum_rows(recv.view(n, -1))
-    if basics._require_init().backend == "nccl":
+    if nccl:
         part = buf.new_empty(buf.numel() // n)
         _record("reduce_scatter", buf, group)
         work = _reduce_scatter_flat_op(part, buf, group=group, async_op=True)
         return [work], lambda: part
-    # gloo: reduce all, keep the slice
+    # gloo, bool: reduce all, keep the slice
     full = buf.clone()
     _record("all_reduce", full, group)
     work = dist.all_reduce(full, group=group, async_op=True)

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..common.device import resolve_device
-from ..ops.collective_ops import _count_submission
+from ..ops.collective_ops import _count_submission, _record
 from ._mesh_utils import axis_size_or_1 as _axis_size
 
 
@@ -45,8 +45,11 @@ def _all_reduce(x: torch.Tensor, process_set) -> torch.Tensor:
     """``x`` summed over the set: the plain ``dist.all_reduce`` on the
     set's group (every rank receives the same bits), booked like the
     eager API's: one ``allreduce`` in ``COLLECTIVES`` and its payload
-    in ``COLLECTIVE_BYTES``."""
+    in ``COLLECTIVE_BYTES``, and recorded inside
+    ``collective_ops.recording()`` as the flat-buffer primitives
+    record their calls."""
     out = x.contiguous().clone()
+    _record("all_reduce", out, process_set.group)
     dist.all_reduce(out, group=process_set.group)
     _count_submission("allreduce", "eager", out)
     return out

@@ -18,20 +18,23 @@ failure.
   * remote hosts are reached with plain ssh like the reference's
     gloo_run, the secret on ssh's stdin, never on the argv.
 
-Not ported: the JAX package's native-controller build before fan-out
-(the port has no native core yet) and ``prebuild_tf_bridge`` (the
-TensorFlow adapter); ``--disable-native`` is accepted and exported.
+Before a local fan-out the TensorFlow adapter's XLA bridge is built
+once (:func:`prebuild_tf_bridge`).  Not ported: the JAX package's
+native-controller build before fan-out (the port has no native core
+yet); ``--disable-native`` is accepted and exported.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import signal
 import socket
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 from .config_parser import config_to_env, load_config_file
@@ -289,11 +292,74 @@ def _worker_env(base: Dict[str, str], knob_env: Dict[str, str],
     return env
 
 
+#: the TensorFlow adapter's XLA custom-call bridge, built with g++ by
+#: ``tensorflow/xla_ops.py`` at first use (or by :func:`prebuild_tf_bridge`)
+TF_BRIDGE_SRC = (Path(__file__).resolve().parent.parent / "tensorflow"
+                 / "src" / "xla_bridge.cc")
+
+
+def tf_bridge_path(tf_version: str) -> Path:
+    """Where the TF XLA bridge is built for TensorFlow ``tf_version``:
+    under ``build/horovod_tpu_torch/``, named by a hash of its source and
+    that version (whose headers and library it is compiled against).
+    Importing TensorFlow is not needed to ask."""
+    from ..ops._build import BUILD_DIR
+
+    h = hashlib.sha256(TF_BRIDGE_SRC.read_bytes() + tf_version.encode())
+    return BUILD_DIR / f"libxla_bridge-{h.hexdigest()[:16]}.so"
+
+
+def prebuild_tf_bridge(verbose: bool = False) -> None:
+    """Build the TF XLA custom-call bridge ONCE before fan-out.
+
+    Without this, N freshly-launched workers each import TF and compile
+    the bridge (``horovod_tpu_torch/tensorflow/src/xla_bridge.cc``)
+    concurrently on the same host, which can stretch worker boot past
+    the rendezvous deadline.  When ``build/horovod_tpu_torch/`` already
+    holds the library named by the source's hash and the installed TF
+    version, this is a stat; otherwise a throwaway process runs the
+    workers' own builder once (whose TF-import cost the workers would
+    each have paid anyway).  Set HVD_TPU_PREBUILD_TF=0 to skip.  No-op when
+    tensorflow is not installed."""
+    if os.environ.get("HVD_TPU_PREBUILD_TF", "1") in ("0", "false"):
+        return
+    import importlib.util
+    from importlib import metadata
+
+    try:
+        if importlib.util.find_spec("tensorflow") is None:
+            return
+    except (ImportError, ValueError):
+        return
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for dist in ("tensorflow", "tensorflow-cpu"):
+        try:
+            if tf_bridge_path(metadata.version(dist)).exists():
+                return  # built for this TF — nothing to do
+            break
+        except metadata.PackageNotFoundError:
+            continue
+    if verbose:
+        print("[runner] pre-building the TF XLA bridge before fan-out",
+              file=sys.stderr)
+    subprocess.run(
+        [sys.executable, "-c",
+         "from horovod_tpu_torch.tensorflow import xla_ops; "
+         "xla_ops.available()"],
+        env=dict(os.environ, TF_CPP_MIN_LOG_LEVEL="3",
+                 PYTHONPATH=os.pathsep.join(
+                     p for p in (os.path.dirname(here),
+                                 os.environ.get("PYTHONPATH")) if p)),
+        capture_output=not verbose, timeout=600, check=False,
+    )
+
+
 def _launch_local(command: List[str], num_proc: int,
                   knob_env: Dict[str, str], output_filename: Optional[str],
                   verbose: bool, disable_native: bool) -> int:
     """Single-host launch: np processes on localhost, lockstep monitored.
     Reference: gloo_run's local exec path + exit-code monitoring."""
+    prebuild_tf_bridge(verbose)
     coordinator = f"127.0.0.1:{_free_port()}"
     native_port = _free_port()
     knob_env = _with_job_secret(knob_env)

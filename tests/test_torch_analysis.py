@@ -460,8 +460,7 @@ def test_main_exit_codes(tmp_path, capsys):
     assert "unknown pass" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("name,item", [("c-api", "A13b"),
-                                       ("programs", "A13c")])
+@pytest.mark.parametrize("name,item", [("c-api", "A13b")])
 def test_unported_passes_exit_2_naming_their_roadmap_item(name, item,
                                                           capsys):
     assert analysis.main(["--root", REPO, "env", name]) == 2

@@ -519,17 +519,15 @@ def _same_on_every_rank(got, key):
 def _gloo_calls(n, world, n_ici, wire_item=0, item=4, floating=True):
     """The ``torch.distributed`` calls a routed sum of an ``n``-element
     buffer issues over gloo, as ``(op, bytes handed over, group size,
-    tier)``: the local reduce-scatter is an all-to-all where the sum is
-    rank-ordered (floating, three or more ranks), else gloo's stand-in,
-    an all-reduce of the whole buffer; the cross hop is an all-gather of
+    tier)``: the local reduce-scatter is an all-to-all (the rank-ordered
+    sum, and gloo's stand-in for the reduce-scatter it lacks); the cross
+    hop is an all-gather of
     the wire shard, an all-to-all and an all-gather of the shard padded
     to a multiple of ``n_dcn`` (rank-ordered), or an all-reduce."""
     n_dcn = world // n_ici
     padded = -(-n // n_ici) * n_ici
     shard = padded // n_ici
-    ordered_local = floating and n_ici > 2
-    out = [("all_to_all" if ordered_local else "all_reduce", padded * item,
-            n_ici, "ici")]
+    out = [("all_to_all", padded * item, n_ici, "ici")]
     if wire_item and floating:
         out.append(("all_gather", n_dcn * shard * wire_item, n_dcn, "dcn"))
     elif floating and n_dcn > 2:
@@ -606,27 +604,24 @@ def _check_layout(got, world, ss):
 
 
 def test_measured_bytes_are_the_model_where_the_calls_are():
-    """Where gloo issues the model's calls (a rank-ordered local hop,
-    an all-reduce or wire all-gather across two slices) the issued
-    bytes are the model's exactly; elsewhere they differ by gloo's
-    stand-in (an all-reduce streams twice a reduce-scatter's bytes)
-    and by the padding of a rank-ordered cross sum, and by nothing
-    else."""
+    """Where gloo issues the model's calls (an all-to-all locally, an
+    all-reduce or wire all-gather across two slices) the issued bytes
+    are the model's exactly; elsewhere they differ by the padding of a
+    rank-ordered cross sum, and by nothing else."""
     for n in (32, 37, 130):
         for wire_item, wire in ((0, None), (2, "bf16")):
             # 2 x 4: all-to-all locally, two slices across
             assert _issued_bytes(_gloo_calls(n, 8, 4, wire_item)) == [
                 tcm.modeled_collective_bytes((n,), 8, 4, wire)[k]
                 for k in ("ici_bytes", "dcn_bytes")]
-            # 2 x 2: the local hop is gloo's all-reduce
+            # 2 x 2: gloo's stand-in all-to-all locally, two slices
             m = tcm.modeled_collective_bytes((n,), 4, 2, wire)
-            padded = -(-n // 2) * 2
             assert _issued_bytes(_gloo_calls(n, 4, 2, wire_item)) == [
-                m["ici_bytes"] + padded * 4 // 2, m["dcn_bytes"]]
+                m["ici_bytes"], m["dcn_bytes"]]
     # 4 x 2, fp32: the cross shard (19 of 38) pads to 20
     m = tcm.modeled_collective_bytes((37,), 8, 2)
     assert _issued_bytes(_gloo_calls(37, 8, 2)) == [
-        m["ici_bytes"] + 38 * 4 // 2, 2 * 3 * 20 * 4 // 4]
+        m["ici_bytes"], 2 * 3 * 20 * 4 // 4]
     assert m["dcn_bytes"] == 2 * 3 * 19 * 4 // 4
 
 
@@ -762,12 +757,12 @@ def test_grouped_async_and_bucketed_forms_route(world4):
             r["hooked"], np.concatenate([grad_w.reshape(-1),
                                          [4.0 * 4, 4.0 * 4]]))
     for k, r in enumerate(world4):
-        # one fused bucket: gloo's local all-reduce, the cross hop, the
+        # one fused bucket: gloo's local all-to-all, the cross hop, the
         # local all-gather, each over this rank's groups
         local = "0,1" if k < 2 else "2,3"
         cross = f"{k % 2},{k % 2 + 2}"
         for key in ("grouped_calls", "async_calls", "hooked_calls"):
-            assert list(r[key]) == [f"all_reduce@{local}",
+            assert list(r[key]) == [f"all_to_all@{local}",
                                     f"all_reduce@{cross}",
                                     f"all_gather@{local}"], (key, r[key])
 

@@ -3,7 +3,10 @@
 * No module of ``horovod_tpu_torch/`` and not ``chip_smoke.py`` imports
   jax, flax, optax or anything of ``horovod_tpu`` (AST scan); the
   contract checker (``horovod_tpu_torch.analysis``) imports the standard
-  library only, and runs with torch and the port's runtime blocked.
+  library only (its gated ``programs`` pass, the runtime inside its
+  functions), and runs with torch and the port's runtime blocked.
+* The TensorFlow and Keras adapters are imported by name only: the
+  package and its checker import neither TensorFlow nor Keras.
 * The port imports and serves with those modules blocked outright.
 * Its entry points, given no device on a machine without a card, raise
   instead of quietly running on the CPU.
@@ -229,25 +232,82 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_adapters_stay_out_of_the_package_and_import_no_jax():
+    """The TensorFlow and Keras adapters are imported by name only:
+    ``import horovod_tpu_torch`` and ``python -m
+    horovod_tpu_torch.analysis`` leave ``tensorflow`` and ``keras`` out
+    of ``sys.modules`` (the card's machine has neither).  No module of
+    ``tensorflow/`` or ``keras/`` imports jax or ``horovod_tpu`` (AST
+    scan), and, where TensorFlow is installed, both adapters import
+    with those modules blocked.  The XLA bridge's library is built under
+    ``build/horovod_tpu_torch/``."""
+    files = sorted((PKG / "tensorflow").glob("*.py")) + sorted(
+        (PKG / "keras").glob("*.py"))
+    assert len(files) == 13
+    offenders = [f"{f.relative_to(ROOT)}: {name}" for f in files
+                 for name in _imported_modules(f) if _banned(name)]
+    assert not offenders, offenders
+    code = (
+        "import runpy, sys\n"
+        f"for m in {BANNED!r}: sys.modules[m] = None\n"
+        "import horovod_tpu_torch\n"
+        "sys.argv = ['analysis', '-q']\n"
+        "try:\n"
+        "    runpy.run_module('horovod_tpu_torch.analysis',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert not {'tensorflow', 'keras'} & set(sys.modules)\n"
+        "from horovod_tpu_torch.ops import _build\n"
+        "from horovod_tpu_torch.runner.launch import tf_bridge_path\n"
+        "assert tf_bridge_path('2.0').parent == _build.BUILD_DIR\n"
+        "assert not {'tensorflow', 'keras'} & set(sys.modules)\n"
+        "assert _build.BUILD_DIR.parts[-2:] == ('build',\n"
+        "    'horovod_tpu_torch')\n"
+        "import importlib.util\n"
+        "if importlib.util.find_spec('tensorflow') is not None:\n"
+        "    import horovod_tpu_torch.tensorflow as t\n"
+        "    import horovod_tpu_torch.keras as k\n"
+        "    from horovod_tpu_torch.tensorflow import xla_ops\n"
+        "    assert xla_ops.lib_path().startswith(str(_build.BUILD_DIR))\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), TF_CPP_MIN_LOG_LEVEL="3")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_analysis_imports_only_the_standard_library():
     """``horovod_tpu_torch.analysis`` imports nothing but the standard
     library and its own modules: no jax or ``horovod_tpu``, no torch,
-    nothing of the port's runtime (AST scan)."""
+    nothing of the port's runtime (AST scan).  The gated ``programs``
+    pass runs the package's steps: inside its functions, and only
+    there, it may import torch, numpy and the port's runtime."""
     files = sorted((PKG / "analysis").glob("*.py"))
-    assert len(files) == 9
+    assert len(files) == 10
     stdlib = set(sys.stdlib_module_names) | {"__future__"}
     for f in files:
         tree = ast.parse(f.read_text(), filename=str(f))
+        in_function = set()
+        if f.name == "programs.py":
+            for fn in ast.walk(tree):
+                if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    in_function.update(id(n) for n in ast.walk(fn))
         for node in ast.walk(tree):
+            runtime = id(node) in in_function
             if isinstance(node, ast.ImportFrom) and node.level:
-                assert node.level == 1, f"{f.name}: from {'.' * node.level}"
+                assert node.level == 1 or (runtime and node.level == 2), \
+                    f"{f.name}: from {'.' * node.level}"
             elif isinstance(node, ast.ImportFrom):
-                assert node.module.split(".")[0] in stdlib, \
-                    f"{f.name}: {node.module}"
+                top = node.module.split(".")[0]
+                assert top in stdlib or (runtime and top in (
+                    "torch", "numpy")), f"{f.name}: {node.module}"
             elif isinstance(node, ast.Import):
                 for alias in node.names:
-                    assert alias.name.split(".")[0] in stdlib, \
-                        f"{f.name}: {alias.name}"
+                    top = alias.name.split(".")[0]
+                    assert top in stdlib or (runtime and top in (
+                        "torch", "numpy")), f"{f.name}: {alias.name}"
 
 
 def test_analysis_runs_with_torch_and_the_port_blocked():

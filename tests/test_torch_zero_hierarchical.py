@@ -316,11 +316,11 @@ def test_the_three_collectives_and_their_tier_bytes(ranks):
                      "zero.updates.local"):
             assert name in tl, name
         # the calls as issued: gloo's stand-in for the local
-        # reduce-scatter (an all-reduce of the bucket), the cross sum of
+        # reduce-scatter (an all-to-all of the bucket), the cross sum of
         # the shard, the local all-gather, then the step's loss averaged
         # over the world
         assert list(r["zero_ops"]) == [
-            "all_reduce:ici:2", "all_reduce:dcn:2", "all_gather:ici:2",
+            "all_to_all:ici:2", "all_reduce:dcn:2", "all_gather:ici:2",
             "all_reduce:dcn:4"]
         padded = int(r["zero_padded"])  # one fp32 bucket
         model = tcm.modeled_collective_bytes((padded,), WORLD, N_LOCAL)
@@ -329,10 +329,10 @@ def test_the_three_collectives_and_their_tier_bytes(ranks):
         np.testing.assert_array_equal(
             r["zero_counters"],
             [model["ici_bytes"], model["dcn_bytes"] + loss])
-        # the issued calls: the all-reduce streams the bucket's bytes
-        # where a reduce-scatter streams half of them
+        # the issued calls: the all-to-all streams a reduce-scatter's
+        # bytes, so the local tier is the model's
         np.testing.assert_array_equal(
-            r["zero_bytes"], [model["ici_bytes"] + padded * 4 // 2,
+            r["zero_bytes"], [model["ici_bytes"],
                               model["dcn_bytes"] + loss])
 
 
